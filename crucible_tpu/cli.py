@@ -2,9 +2,10 @@
 
     crucible-tpu --file out --world 1 [--movie --seconds S --rate R]
 
-plus TPU-era extras: --spp/--depth/--width overrides, --seed, --cpu, and
---format. ``--threads`` is accepted for parity and ignored (parallelism is
-device-mesh sharding, not host threads).
+plus extras: --spp/--depth/--width overrides, --seed and --cpu. The output
+format follows the --file extension (.ppm, or .png). ``--threads`` is
+accepted for parity and ignored (parallelism is the device's, not host
+threads').
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="crucible-tpu",
-        description="TPU-native differentiable Monte Carlo path tracer",
+        description="Differentiable Monte Carlo path tracer",
     )
     p.add_argument("--file", required=True, help="output file (extension auto-appended)")
     p.add_argument("--world", type=int, default=1, help="demo world number (invalid -> default with warning)")
@@ -41,6 +42,9 @@ def main(argv=None) -> int:
         jax.config.update("jax_platforms", "cpu")
 
     from crucible_tpu.models import demo, render
+    from crucible_tpu.utils import backend
+
+    backend.configure_compile_cache()
 
     if args.movie:
         if args.seconds is None or args.rate is None:

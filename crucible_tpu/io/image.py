@@ -1,4 +1,5 @@
-"""Image decode (LDR via PIL, HDR via the RGBE codec) and film output.
+"""Image decode (LDR via PIL, HDR via the RGBE codec) and film output
+(PPM, and PNG through NumPy + zlib).
 
 Reference analogues: ``RTWImage`` (src/asset_loader/img_loader.rs:8-77 —
 decode to rgb8, byte/255 color scale, clamped accessor) and the P3 PPM
@@ -8,6 +9,8 @@ formatting in ``Camera::render`` (src/camera/mod.rs:306-311) +
 
 from __future__ import annotations
 
+import struct
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -31,7 +34,13 @@ def load_image_path(path) -> np.ndarray:
     path = Path(path)
     if path.suffix.lower() == ".hdr":
         return hdr_io.read_hdr(path)
-    from PIL import Image
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            f"decoding {path.name} needs Pillow (PIL), which is not "
+            f"installed; .hdr and procedural assets load without it"
+        ) from e
 
     with Image.open(path) as im:
         arr = np.asarray(im.convert("RGB"), dtype=np.float32) / 255.0
@@ -61,14 +70,29 @@ def read_ppm(path) -> np.ndarray:
     return pix.reshape(h, w, 3).astype(np.uint8)
 
 
-def write_png(path, img_u8: np.ndarray) -> None:
-    from PIL import Image
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    body = tag + data
+    return struct.pack(">I", len(data)) + body + struct.pack(">I", zlib.crc32(body))
 
-    Image.fromarray(np.asarray(img_u8, dtype=np.uint8), mode="RGB").save(path)
+
+def write_png(path, img_u8: np.ndarray) -> None:
+    """Write (H, W, 3) uint8 as an 8-bit RGB PNG (filter type 0 on every
+    scanline, zlib-compressed IDAT) — no imaging library needed."""
+    img = np.ascontiguousarray(np.asarray(img_u8, dtype=np.uint8))
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"write_png wants (H, W, 3) uint8, got {img.shape}")
+    h, w = img.shape[:2]
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
+    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)  # 8-bit truecolor
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(_png_chunk(b"IHDR", header))
+        f.write(_png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
+        f.write(_png_chunk(b"IEND", b""))
 
 
 def write_image(path, img_u8: np.ndarray) -> None:
-    """Dispatch on extension: .ppm -> P3 text, else PIL (png/jpg/...)."""
+    """Dispatch on extension: .ppm -> P3 text, anything else -> PNG."""
     path = Path(path)
     if path.suffix.lower() == ".ppm":
         write_ppm(path, img_u8)

@@ -20,14 +20,14 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 import jax.numpy as jnp
-from flax import struct
+from crucible_tpu.utils.tree import pytree_dataclass, static_field
 
 from crucible_tpu.ops import sampling
 from crucible_tpu.utils import rng as crng
 from crucible_tpu.utils import vec
 
 
-@struct.dataclass
+@pytree_dataclass
 class CameraParams:
     """Differentiable camera parameters (all jnp scalars / 3-vectors).
 
@@ -59,8 +59,8 @@ class CameraParams:
     at_tr_t1: jnp.ndarray = None
     at_tr_delta: jnp.ndarray = None
     at_tr_init: jnp.ndarray = None
-    animated: bool = struct.field(pytree_node=False, default=False)
-    motion_exact: bool = struct.field(pytree_node=False, default=False)
+    animated: bool = static_field(False)
+    motion_exact: bool = static_field(False)
 
 
 def generate_rays(
@@ -214,7 +214,7 @@ class Camera:
 
     def set_threads(self, _n: int) -> None:
         """Compatibility no-op: parallelism is device-mesh sharding here, not
-        host threads (SURVEY.md §2.7 TPU plan)."""
+        host threads (SURVEY.md §2.7)."""
 
     def look_from(self, p) -> None:
         """Set the camera position; resets any from-animation, like the

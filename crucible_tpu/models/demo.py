@@ -182,9 +182,9 @@ def nested_checkers(width: int = 400, nest: int = 3) -> Scene:
 def sphere_stress(width: int = 400, copies: int = 4, seed: int = 7) -> Scene:
     """book1's random-sphere field tiled ``copies`` times across a grid —
     the multi-tile sphere-table stress scene (VERDICT r3 #5). Each copy is
-    a fresh 22x22 random field offset by a grid cell, so N ~ 484 * copies
-    spans several 512-row megakernel tiles and most tiles' spheres are far
-    from most rays: the scenario where cluster chunk-culling can win.
+    a fresh 22x22 random field offset by a grid cell, so the sphere table
+    has N ~ 484 * copies rows and most spheres are far from most rays: the
+    scenario where a sphere acceleration structure would win.
     Camera/quality settings match book1 (demo_images.rs:14-26)."""
     sc = book1_end_scene(width=width, seed=seed)
     rng = np.random.default_rng(seed + 1)

@@ -1,4 +1,4 @@
-"""Wavefront path integrator: the TPU re-imagination of ``ray_color``.
+"""Wavefront path integrator: the batched re-imagination of ``ray_color``.
 
 The reference integrates recursively per ray (src/camera/ray_casting.rs:
 112-152): on hit, ``attenuation * ray_color(scattered, depth-1)``; on miss,
@@ -97,12 +97,8 @@ def exact_sphere_winner(sd: SceneData, i_s, t_ray):
     return c_w, r_w
 
 
-def intersect_scene(sd: SceneData, o, d, use_pallas: bool = False, w=None):
+def intersect_scene(sd: SceneData, o, d, w=None):
     """Closest hit against all scene primitives.
-
-    ``use_pallas`` routes sphere intersection through the fused VMEM kernel
-    (ops/pallas/sphere_hit.py) — requires R % TILE_RAYS == 0; the pure-jnp
-    path is the portable reference.
 
     Returns a dict of per-ray arrays:
       hit (bool), t, point (R,3), normal (R,3) front-face-flipped unit,
@@ -144,13 +140,6 @@ def intersect_scene(sd: SceneData, o, d, use_pallas: bool = False, w=None):
             sd.sph_active,
             T_MIN,
             jnp.inf,
-        )
-    elif use_pallas:
-        from crucible_tpu.ops.pallas.sphere_hit import hit_spheres_pallas
-
-        csr = jnp.sum(sd.sph_center * sd.sph_center, -1) - sd.sph_radius * sd.sph_radius
-        t_s, i_s, hit_s = hit_spheres_pallas(
-            o, d, sd.sph_center, csr, sd.sph_active.astype(jnp.float32), t_min=T_MIN
         )
     else:
         t_s, i_s, hit_s = intersect.hit_spheres(
@@ -299,7 +288,7 @@ def intersect_scene(sd: SceneData, o, d, use_pallas: bool = False, w=None):
 
 def bounce_step(
     sd: SceneData, o, d, pixel_ids, sample_ids, bounce, seed,
-    use_pallas=False, return_decisions=False,
+    return_decisions=False,
 ):
     """One wavefront bounce: intersect, shade, sample the next direction.
 
@@ -319,7 +308,7 @@ def bounce_step(
         w = crng.uniform1(pixel_ids, sample_ids, crng.STREAM_TIME, seed)
     else:
         w = None
-    h = intersect_scene(sd, o, d, use_pallas=use_pallas, w=w)
+    h = intersect_scene(sd, o, d, w=w)
     hit = h["hit"]
 
     sky = sky_mod.radiance(sd.sky_kind, sd.sky_image, d)
@@ -370,12 +359,16 @@ def bounce_step(
 
 
 def make_sphere_table(sd: SceneData):
-    """Per-sphere attribute table (N, 32) for the fused intersect+fetch
-    kernel (ops/pallas/sphere_shade.py — see its docstring for the column
-    layout). Built from the differentiable scene tables with N-sized (tiny)
-    gathers; loop-invariant per render. Motion columns are zeros for static
-    scenes."""
-    n = sd.sph_center.shape[0]
+    """Per-sphere attribute table (N, 31): the winner-row fetch of the
+    replay (models/replay.py). Built from the differentiable scene tables
+    with N-sized (tiny) gathers; loop-invariant per render.
+
+    Columns: 0-2 center, 3 radius, 4 |c|^2 - r^2, 5 active, 6 material
+    type, 7 fuzz, 8 ior, 9 scatter probability, 10-12 emission, 13 texture
+    kind, 14-16 solid color, 17 checker 1/scale, 18-20 / 21-23 even / odd
+    checker colors, 24-26 center motion delta, 27 radius delta, 28-29
+    motion quadratic terms, 30 texture id. Motion columns are zeros for
+    static scenes."""
     mat = sd.sph_mat
     tid = jnp.take(sd.mat_tex, mat, axis=0)
     even_id = jnp.take(sd.tex.even, tid, axis=0)
@@ -386,7 +379,6 @@ def make_sphere_table(sd: SceneData):
     else:
         cd = jnp.zeros_like(sd.sph_center)
         rd = jnp.zeros_like(sd.sph_radius)
-    zeros = jnp.zeros((n,), jnp.float32)
     cols = [
         sd.sph_center[:, 0],
         sd.sph_center[:, 1],
@@ -419,83 +411,8 @@ def make_sphere_table(sd: SceneData):
         jnp.sum(sd.sph_center * cd, -1) - sd.sph_radius * rd,  # s1
         jnp.sum(cd * cd, -1) - rd * rd,  # s2
         tid.astype(jnp.float32),  # 30: texture id (replay image lookups)
-        # 31: original row id (exact in f32 for ids < 2^24 >> REC_MAX_IDS).
-        # Structure-walk record passes fetch it through the winner fetch to
-        # DE-PERMUTE ids from the BVH/cluster-permuted table, keeping
-        # records bit-compatible with the brute/staged passes.
-        jnp.arange(n, dtype=jnp.float32),
     ]
     return jnp.stack(cols, axis=1)
-
-
-def fused_supported(sd: SceneData) -> bool:
-    """Static predicate: the fused gather-free bounce applies to sphere-only
-    scenes (static or linearly-moving) whose textures are
-    solid/checker-of-solid (no image lookups — those need uv + texel
-    gathers). The equirect sky image is fine (sampled outside the kernel).
-    Exact per-ray-time track evaluation (mid-shutter keyframes) and nested
-    checkers (the fused table bakes one level of checker colors) stay on
-    the jnp path."""
-    return (
-        sd.num_tris == 0
-        and len(sd.tex.images) == 0
-        and sd.tex.max_nest <= 1
-        and not sd.motion_exact
-    )
-
-
-def bounce_step_fused(sd: SceneData, table, o, d, pixel_ids, sample_ids, bounce, seed):
-    """Gather-free bounce for sphere scenes: the pallas kernel returns the
-    winner's shading attributes directly (sphere_shade.py), so everything
-    below is elementwise. Also skips sphere-uv transcendentals (uv only
-    feeds image textures, absent here)."""
-    from crucible_tpu.ops.pallas.sphere_shade import hit_spheres_fetch
-
-    if sd.animated:
-        w = crng.uniform1(pixel_ids, sample_ids, crng.STREAM_TIME, seed)
-    else:
-        w = jnp.zeros(o.shape[:1], jnp.float32)
-    out = hit_spheres_fetch(o, d, w, table, t_min=T_MIN)
-    t = out[0]
-    hit = t < BIG
-    center = out[2:5].T + w[:, None] * out[24:27].T
-    radius = out[5] + w * out[27]
-    point = o + jnp.where(hit, t, 1.0)[:, None] * d
-    n_out = (point - center) / jnp.maximum(radius, 1e-20)[:, None]
-    front = vec.dot(d, n_out) < 0.0
-    normal = jnp.where(front[:, None], n_out, -n_out)
-
-    mat_type = out[6]
-    emission = out[10:13].T
-    sky = sky_mod.radiance(sd.sky_kind, sd.sky_image, d)
-    contrib = jnp.where(hit[:, None], emission, sky)
-
-    # Texture: solid or 3-D checker of solids (textures.py semantics).
-    tex_kind = out[13]
-    inv_scale = out[17]
-    xyz = jnp.floor(inv_scale[:, None] * point).astype(jnp.int32)
-    is_even = (xyz[:, 0] + xyz[:, 1] + xyz[:, 2]) % 2 == 0
-    checker = jnp.where(is_even[:, None], out[18:21].T, out[21:24].T)
-    albedo = jnp.where((tex_kind == tex_mod.CHECKER)[:, None], checker, out[14:17].T)
-
-    u_dir1, u_dir2, u_decide = crng.uniform3(
-        pixel_ids,
-        sample_ids,
-        jnp.uint32(crng.STREAM_BOUNCE_BASE) + jnp.asarray(bounce).astype(jnp.uint32),
-        seed,
-    )
-    new_dir, atten, scattered = mat_mod.scatter(
-        mat_type, out[7], out[8], out[9], albedo, d, normal, front,
-        u_dir1, u_dir2, u_decide,
-    )
-    return dict(
-        contrib=contrib,
-        hit=hit,
-        scattered=scattered,
-        new_o=point,
-        new_d=new_dir,
-        atten=atten,
-    )
 
 
 def trace(
@@ -506,7 +423,6 @@ def trace(
     sample_ids,
     seed,
     max_depth: int,
-    use_pallas: bool = False,
     differentiable: bool = False,
 ):
     """Integrate radiance for a wavefront of primary rays -> (R, 3).
@@ -525,7 +441,7 @@ def trace(
 
     def body(state):
         bounce, o_c, d_c, throughput, radiance, alive = state
-        s = bounce_step(sd, o_c, d_c, pixel_ids, sample_ids, bounce, seed, use_pallas)
+        s = bounce_step(sd, o_c, d_c, pixel_ids, sample_ids, bounce, seed)
         radiance = radiance + jnp.where(
             alive[:, None], throughput * s["contrib"], 0.0
         )
@@ -541,7 +457,7 @@ def trace(
         # AD tape holds every (R, N) intersection intermediate for all
         # max_depth bounces (O(depth * R * N) memory); with it, backward
         # memory is one bounce deep at the cost of recomputing forwards
-        # (the jax.checkpoint trade from the TPU playbook).
+        # (the usual jax.checkpoint memory-for-compute trade).
         @jax.checkpoint
         def scan_body(state, _):
             return body(state), None
@@ -565,18 +481,18 @@ def trace_persistent(
     max_depth: int,
     seed,
     lanes: int = 0,
-    use_pallas: bool = True,
     return_stats: bool = False,
     sample_start=0,
+    pixel_ids=None,
 ):
     """Persistent-wavefront path tracer with lane-local sample regeneration.
 
-    The TPU answer to ray compaction (SURVEY.md §7 "Wavefront integrator"):
+    The wavefront answer to ray compaction (SURVEY.md §7 "Wavefront integrator"):
     every vector lane is PERMANENTLY bound to one pixel and walks that
     pixel's spp samples sequentially. When a lane's path dies (sky hit,
     absorption, depth exhausted) it immediately starts the pixel's next
-    sample — no global work queue, no prefix sums, and crucially NO
-    scatter-adds into a framebuffer (TPU scatters are slow): each lane
+    sample — no global work queue, no prefix sums, and NO scatter-adds
+    into a framebuffer: each lane
     accumulates privately and the framebuffer is just the accumulator array.
 
     Lane utilization is governed by path-length variance *summed over spp
@@ -602,33 +518,32 @@ def trace_persistent(
     ``sample_start`` renders samples [sample_start, spp) — the chunked
     progress-reporting driver (models/render.py) sums chunk renders, same
     sample set as one call up to f32 summation order.
+
+    ``pixel_ids`` (P,) renders only those pixels of the frame (sums (P, 3));
+    ``lanes`` then counts lanes for those P pixels.
     """
-    num_pixels = width * height
+    num_pixels = width * height if pixel_ids is None else pixel_ids.shape[0]
     spp_static = int(spp) if isinstance(spp, (int, np.integer)) else None
     groups = max(1, (max(lanes, 1) + num_pixels - 1) // num_pixels)
     if spp_static is not None:
         groups = min(spp_static, groups)
     spp = jnp.asarray(spp, jnp.uint32)
     sample_start = jnp.asarray(sample_start, jnp.uint32)
-    p_pad = ((num_pixels + 511) // 512) * 512  # pallas TILE_RAYS alignment
-    r = groups * p_pad
+    r = groups * num_pixels
 
     lane = jnp.arange(r, dtype=jnp.uint32)
-    pix = jnp.minimum(lane % p_pad, num_pixels - 1)
-    grp = lane // p_pad
-    # Padding lanes (pixel slot >= num_pixels) start exhausted.
-    pad = (lane % p_pad) >= num_pixels
+    pix = lane % num_pixels
+    if pixel_ids is not None:
+        pix = jnp.take(pixel_ids, pix)
+    grp = lane // num_pixels
 
     acc0 = jnp.zeros((r, 3), jnp.float32)
-    sample0 = jnp.where(pad, spp, sample_start + grp).astype(jnp.uint32)
+    sample0 = (sample_start + grp).astype(jnp.uint32)
     alive0 = jnp.zeros((r,), bool)
     bounce0 = jnp.zeros((r,), jnp.int32)
     o0 = jnp.zeros((r, 3), jnp.float32)
     d0 = jnp.ones((r, 3), jnp.float32)
     thr0 = jnp.zeros((r, 3), jnp.float32)
-
-    fused = use_pallas and fused_supported(sd)
-    table = make_sphere_table(sd) if fused else None
 
     def cond(state):
         sample_i, alive, *_ = state[:-1] if return_stats else state
@@ -653,10 +568,7 @@ def trace_persistent(
         smp_next = jnp.where(issue, sample_i + groups, sample_i)
 
         # --- one bounce for every lane ------------------------------------
-        if fused:
-            s = bounce_step_fused(sd, table, o, d, pix, smp, bounce, seed)
-        else:
-            s = bounce_step(sd, o, d, pix, smp, bounce, seed, use_pallas)
+        s = bounce_step(sd, o, d, pix, smp, bounce, seed)
         acc = acc + jnp.where(alive[:, None], thr * s["contrib"], 0.0)
 
         cont = alive & s["hit"] & s["scattered"] & (bounce + 1 < max_depth)
@@ -672,142 +584,22 @@ def trace_persistent(
         *rest, acc, iters = jax.lax.while_loop(
             cond, body, state + (jnp.int32(0),)
         )
-        return acc.reshape(groups, p_pad, 3).sum(axis=0)[:num_pixels], iters
+        return acc.reshape(groups, num_pixels, 3).sum(axis=0), iters
     *_, acc = jax.lax.while_loop(cond, body, state)
-    return acc.reshape(groups, p_pad, 3).sum(axis=0)[:num_pixels]
+    return acc.reshape(groups, num_pixels, 3).sum(axis=0)
 
 
-def megakernel_supported(sd: SceneData, cp) -> bool:
-    """Static predicate for the all-in-VMEM persistent megakernel
-    (ops/pallas/megakernel.py): solid/checker textures, default-gradient
-    sky. Moving spheres, animated cameras (per-ray basis re-derivation
-    in-kernel), and — as of r4 — MOVING triangle meshes (linear shutter
-    vertex deltas lerped in the leaf test; the node bounds already union
-    the shutter endpoints) are supported; only exact per-ray-time scenes
-    fall back to the staged path. Very large BVHs fall back: node metadata
-    lives in SMEM, capped at megakernel.MAX_TRI_NODES (raise leaf_size to
-    shrink the node count)."""
-    from crucible_tpu.ops.pallas.megakernel import MAX_TRI_NODES
-
-    tris_ok = sd.num_tris == 0 or (
-        sd.use_bvh and sd.bvh_min.shape[0] <= MAX_TRI_NODES
-    )
-    return (
-        len(sd.tex.images) == 0
-        and sd.tex.max_nest <= 1
-        and sd.sky_kind == sky_mod.DEFAULT
-        and tris_ok
-        and not sd.motion_exact
-        and not getattr(cp, "motion_exact", False)
-    )
-
-
-def megakernel_record_supported(sd: SceneData, cp) -> bool:
-    """Static predicate for the RECORD-MODE megakernel (replay.py).
-
-    Wider than :func:`megakernel_supported`: path DECISIONS (winner ids,
-    scatter branches, termination) never depend on albedo or sky radiance —
-    Lambertian/metal/dielectric directions and Russian-roulette use only
-    geometry + material scalars — so image textures, equirect skyboxes and
-    nested checkers are all fine here; the decision records feed the jnp
-    replay, whose XLA gathers handle the texel/sky lookups. Only the
-    geometry stage's limits remain: BVH triangles (static or linear-motion,
-    node count within the SMEM cap), no exact per-ray timeline
-    evaluation."""
-    from crucible_tpu.ops.pallas.megakernel import MAX_TRI_NODES
-
-    from crucible_tpu.models.render import MEGA_MAX_BRUTE_ROWS
-
-    tris_ok = sd.num_tris == 0 or (
-        sd.use_bvh and sd.bvh_min.shape[0] <= MAX_TRI_NODES
-    )
-    # Big sphere tables need a structure walk (sphere BVH / cluster cull,
-    # built at scene build — sd.sph_perm): the brute (N, T) candidate
-    # buffers exceed scoped VMEM past ~4k rows. Without one (structure
-    # build disabled or all spheres hidden), route to the staged record.
-    rows_ok = (
-        int(sd.sph_center.shape[0]) <= MEGA_MAX_BRUTE_ROWS
-        or sd.sph_perm is not None
-    )
-    return (
-        tris_ok
-        and rows_ok
-        and not sd.motion_exact
-        and not getattr(cp, "motion_exact", False)
-    )
-
-
-def make_tri_tables(sd: SceneData):
-    """Assemble the megakernel triangle inputs from the scene arrays:
-    (tri_nodes (K,16), tris (M,16) — or (M,32) for MOVING meshes, with
-    linear shutter deltas v0d/e1d/e2d in cols 16-24 — mats (NM,24)) —
-    layouts in megakernel.run_megakernel's docstring. Tiny per-render
-    gathers."""
-    e1 = sd.tri_v1 - sd.tri_v0
-    e2 = sd.tri_v2 - sd.tri_v0
-    n = intersect.triangle_normal(sd.tri_v0, sd.tri_v1, sd.tri_v2)
-    m = sd.tri_v0.shape[0]
-    from crucible_tpu.ops.pallas.megakernel import WOOP
-
-    if WOOP and sd.tri_v0_d is None:
-        # WOOP layout (static meshes): cols 0-11 = the affine world->unit-
-        # triangle transform (rows of M = [e1 e2 nu]^-1 and b = -M v0, with
-        # nu = e1 x e2 UNNORMALIZED so det = |nu|^2), cols 12-14 = unit
-        # normal, col 15 = mat id. The kernel's unit-triangle test
-        # (t = -o'_z/d'_z, u = o'_x + t d'_x, ...) replaces Moller-Trumbore
-        # with ~17% fewer VPU ops and no cross-product temporaries.
-        nu = jnp.cross(e1, e2)
-        det = jnp.sum(nu * nu, axis=-1, keepdims=True)
-        inv = 1.0 / jnp.where(jnp.abs(det) > 1e-30, det, 1.0)
-        a0 = jnp.cross(e2, nu) * inv
-        a1 = jnp.cross(nu, e1) * inv
-        a2 = nu * inv
-        # Degenerate rows (det ~ 0): zero the transform -> d'_z == 0 ->
-        # the dz guard rejects, like MT's det_ok.
-        ok = (jnp.abs(det) > 1e-30).astype(jnp.float32)
-        a0, a1, a2 = a0 * ok, a1 * ok, a2 * ok
-        b = jnp.stack(
-            [
-                -jnp.sum(a0 * sd.tri_v0, axis=-1),
-                -jnp.sum(a1 * sd.tri_v0, axis=-1),
-                -jnp.sum(a2 * sd.tri_v0, axis=-1),
-            ],
-            axis=1,
-        )
-        cols = [a0, a1, a2, b, n, sd.tri_mat.astype(jnp.float32)[:, None]]
-    else:
-        cols = [
-            sd.tri_v0, e1, e2, n,
-            sd.tri_mat.astype(jnp.float32)[:, None],
-            jnp.zeros((m, 3), jnp.float32),
-        ]
-        if sd.tri_v0_d is not None:
-            cols += [
-                sd.tri_v0_d,
-                sd.tri_v1_d - sd.tri_v0_d,  # e1 delta
-                sd.tri_v2_d - sd.tri_v0_d,  # e2 delta
-                jnp.zeros((m, 7), jnp.float32),
-            ]
-    tris = jnp.concatenate(cols, axis=1)
-    # Pad by one leaf of zero rows: the kernel's batched leaf test reads a
-    # full tri_leaf block at any leaf start (zero rows fail det_ok).
-    tris = jnp.pad(tris, ((0, sd.bvh_leaf_size), (0, 0)))
-    k = sd.bvh_min.shape[0]
-    tri_nodes = jnp.concatenate(
-        [
-            sd.bvh_min, sd.bvh_max,
-            sd.bvh_first.astype(jnp.float32)[:, None],
-            sd.bvh_count.astype(jnp.float32)[:, None],
-            sd.bvh_miss.astype(jnp.float32)[:, None],
-            jnp.zeros((k, 7), jnp.float32),
-        ],
-        axis=1,
-    )
-    nm = sd.mat_type.shape[0]
+def make_mat_table(sd: SceneData):
+    """Per-material attribute table (L, 19) for the replay's triangle-hit
+    fetch (models/replay.py). Columns match :func:`make_sphere_table`'s
+    columns 6-24 shifted down by 6: 0 material type, 1 fuzz, 2 ior, 3
+    scatter probability, 4-6 emission, 7 texture kind, 8-10 solid color,
+    11 checker 1/scale, 12-14 / 15-17 even / odd checker colors, 18 texture
+    id."""
     tid = sd.mat_tex
     even_id = jnp.take(sd.tex.even, tid, axis=0)
     odd_id = jnp.take(sd.tex.odd, tid, axis=0)
-    mats = jnp.concatenate(
+    return jnp.concatenate(
         [
             sd.mat_type.astype(jnp.float32)[:, None],
             sd.mat_fuzz[:, None],
@@ -819,182 +611,10 @@ def make_tri_tables(sd: SceneData):
             jnp.take(sd.tex.inv_scale, tid, axis=0)[:, None],
             jnp.take(sd.tex.color, even_id, axis=0),
             jnp.take(sd.tex.color, odd_id, axis=0),
-            tid.astype(jnp.float32)[:, None],  # 18: texture id (replay)
-            jnp.zeros((nm, 5), jnp.float32),
+            tid.astype(jnp.float32)[:, None],
         ],
         axis=1,
     )
-    # Flat int32 node metadata [first, count, miss] per node, padded with
-    # NODE_WIN guard rows (count 0, miss = K) — lives in SMEM so the
-    # kernel's scalar cursor chase reads it without syncing on the vector
-    # pipeline (the f32 metadata columns of tri_nodes are legacy and
-    # unread by the kernel).
-    from crucible_tpu.ops.pallas.megakernel import NODE_WIN
-
-    guard = jnp.broadcast_to(
-        jnp.asarray([0, 0, k], jnp.int32), (NODE_WIN, 3)
-    )
-    tri_meta = jnp.concatenate(
-        [
-            jnp.stack(
-                [
-                    sd.bvh_first.astype(jnp.int32),
-                    sd.bvh_count.astype(jnp.int32),
-                    sd.bvh_miss.astype(jnp.int32),
-                ],
-                axis=1,
-            ),
-            guard,
-        ]
-    ).reshape(-1)
-    return tri_nodes, tris, mats, tri_meta
-
-
-def mega_cam_vector(cp, width: int, height: int):
-    """Camera-constant vector for the megakernel — the static-camera
-    specialization of models/camera.py::generate_rays (identical formulas
-    and eps; layout documented at megakernel.py CAM_SIZE)."""
-    from crucible_tpu.ops.pallas import megakernel as mk
-    from crucible_tpu.utils import vec
-
-    lf, la = cp.look_from, cp.look_at
-    w_b = vec.unit(lf - la, eps=1e-12)
-    u_b = vec.unit(jnp.cross(cp.vup, w_b), eps=1e-12)
-    v_b = jnp.cross(w_b, u_b)
-    h = jnp.tan(cp.vfov_rad / 2.0)
-    viewport_h = 2.0 * h * cp.focus_dist
-    viewport_w = viewport_h * (width / height)
-    du = viewport_w * u_b / width
-    dv = viewport_h * (-v_b) / height
-    pixel00 = (
-        lf - cp.focus_dist * w_b - 0.5 * (width - 1) * du - 0.5 * (height - 1) * dv
-    )
-    defr = cp.focus_dist * jnp.tan(cp.defocus_angle_rad / 2.0)
-    defr = jnp.where(cp.defocus_angle_rad > 0.0, defr, 0.0)
-    zero3 = jnp.zeros((3,), jnp.float32)
-    lf_d = cp.look_from_d if cp.look_from_d is not None else zero3
-    la_d = cp.look_at_d if cp.look_at_d is not None else zero3
-    return jnp.concatenate(
-        [
-            pixel00, du, dv, lf, u_b, v_b, defr[None],
-            # Animated-camera slots 19-37 (megakernel.py layout).
-            la, lf_d, la_d, cp.vup,
-            viewport_h[None], viewport_w[None], cp.focus_dist[None],
-            jnp.asarray([width, height], jnp.float32),
-            jnp.asarray([0.5 * (width - 1), 0.5 * (height - 1)], jnp.float32),
-            jnp.zeros((10,), jnp.float32),
-        ]
-    ).astype(jnp.float32).reshape(1, mk.CAM_SIZE)
-
-
-def trace_persistent_mega(
-    sd: SceneData,
-    cp,
-    width: int,
-    height: int,
-    spp,
-    max_depth,
-    seed,
-    lanes: int = 0,  # accepted for signature parity; lane count = pixels
-    use_pallas: bool = True,  # ditto
-    interpret: bool = False,
-    cluster_perm=None,  # (N_pad,) int32 from megakernel.cluster_spheres
-    cluster_bounds=None,  # (K, 8) f32 chunk AABBs (enables chunk culling)
-    sphere_nodes=None,  # (K, 16) f32 sphere-BVH boxes (sphere_bvh_tables;
-    #                     cluster_perm then carries the BVH-leaf-order perm)
-    sphere_meta=None,  # (3*(K+W),) i32 sphere-BVH node metadata
-    swizzle: bool = True,
-    row0=0,  # first image row this call renders (traced ok) — sharding
-    band_height: int | None = None,  # rows this call renders (default: all)
-    sample_start=0,  # render samples [sample_start, spp) — chunked progress
-):
-    """Whole persistent render in ONE pallas kernel (see megakernel.py).
-
-    Semantics = trace_persistent with groups=1 (lane p walks pixel p's spp
-    samples; identical pcg4d streams), with per-TILE loop exit instead of a
-    global wavefront barrier. Returns the per-pixel radiance SUM
-    (band_height*width, 3). ``spp``, ``max_depth`` and ``seed`` are traced —
-    one executable per (scene shape, image size).
-
-    ``swizzle`` maps each 512-lane tile to a 32x16 PIXEL BLOCK instead of
-    1.3 scanlines: compact tile frustums mean coherent path lengths (earlier
-    per-tile exit) and fewer sphere chunks per tile under cluster culling.
-    Per-pixel output is bit-identical either way (lane assignment only).
-
-    ``row0``/``band_height`` render a horizontal band of the FULL image
-    (width/height stay the global dims for camera math and RNG pixel ids),
-    which is how the multi-chip driver shards pixels: each device renders
-    rows [row0, row0+band_height) and the sharded image is bit-identical
-    to the single-chip render (parallel/render.py).
-    """
-    from crucible_tpu.ops.pallas import megakernel as mk
-    from crucible_tpu.utils import vec
-
-    if band_height is None:
-        band_height = height
-    row0 = jnp.asarray(row0, jnp.int32)
-    sample_start = jnp.asarray(sample_start, jnp.int32)
-    band_pixels = width * band_height
-    if swizzle:
-        bw, bh = 32, mk.TILE // 32
-        gx = (width + bw - 1) // bw
-        gy = (band_height + bh - 1) // bh
-        r = gx * gy * mk.TILE
-        lane = jnp.arange(r, dtype=jnp.int32)
-        tile, q = lane // mk.TILE, lane % mk.TILE
-        px = (tile % gx) * bw + q % bw
-        py = (tile // gx) * bh + q // bw + row0  # global image row
-        valid = (px < width) & (py < row0 + band_height) & (py < height)
-        pix = (
-            jnp.minimum(py, height - 1) * width + jnp.minimum(px, width - 1)
-        ).reshape(1, r)
-        sample0 = jnp.where(valid, sample_start, jnp.int32(2**30)).reshape(1, r)
-        p = jnp.arange(band_pixels, dtype=jnp.int32)
-        ppx, ppy = p % width, p // width  # band-local row
-        lane_of = (
-            ((ppy // bh) * gx + ppx // bw) * mk.TILE + (ppy % bh) * bw + ppx % bw
-        )
-    else:
-        r = ((band_pixels + mk.TILE - 1) // mk.TILE) * mk.TILE
-        lane = jnp.arange(r, dtype=jnp.int32)
-        gpix = lane + row0 * width  # global flat pixel id
-        valid = (lane < band_pixels) & (gpix < width * height)
-        pix = jnp.minimum(gpix, width * height - 1).reshape(1, r)
-        sample0 = jnp.where(valid, sample_start, jnp.int32(2**30)).reshape(1, r)
-        lane_of = None
-
-    cam = mega_cam_vector(cp, width, height)
-
-    smem = jnp.stack(
-        [
-            jnp.asarray(spp, jnp.uint32).astype(jnp.int32),
-            jnp.asarray(seed, jnp.uint32).astype(jnp.int32),
-            jnp.int32(width),
-            jnp.asarray(max_depth, jnp.int32),
-            jnp.int32(0), jnp.int32(0), jnp.int32(0), jnp.int32(0),
-        ]
-    )
-    table = make_sphere_table(sd)
-    if cluster_perm is not None:
-        n_pad = cluster_perm.shape[0]
-        if n_pad > table.shape[0]:
-            table = jnp.pad(table, ((0, n_pad - table.shape[0]), (0, 0)))
-        table = jnp.take(table, cluster_perm, axis=0)
-    if sd.num_tris > 0:
-        tri_nodes, tris, mats, tri_meta = make_tri_tables(sd)
-    else:
-        tri_nodes = tris = mats = tri_meta = None
-    acc = mk.run_megakernel(
-        smem, pix, sample0, cam, table, cluster_bounds,
-        sphere_nodes, sphere_meta,
-        tri_nodes, tris, mats, tri_meta,
-        animated=bool(sd.animated), cam_animated=bool(cp.animated),
-        tri_leaf=sd.bvh_leaf_size, sph_leaf=mk.SPH_LEAF,
-        interpret=interpret,
-    )
-    if lane_of is not None:
-        return jnp.take(acc.T, lane_of, axis=0)
-    return acc.T[:band_pixels]
 
 
 def trace_persistent_queue(
@@ -1006,7 +626,6 @@ def trace_persistent_queue(
     max_depth: int,
     seed,
     lanes: int,
-    use_pallas: bool = True,
     return_stats: bool = False,
     sample_start=0,
 ):
@@ -1038,9 +657,6 @@ def trace_persistent_queue(
         assert total_static < 2**31, "queue schedule path ids overflow int32"
         r = min(r, ((total_static + 511) // 512) * 512)
     total = jnp.int32(num_pixels) * jnp.asarray(spp, jnp.int32)
-
-    fused = use_pallas and fused_supported(sd)
-    table = make_sphere_table(sd) if fused else None
 
     lane = jnp.arange(r, dtype=jnp.int32)
     # "previous" path id; first issue advances by r into [start, total).
@@ -1078,10 +694,7 @@ def trace_persistent_queue(
         thr = jnp.where(issue[:, None], 1.0, thr)
         bounce = jnp.where(issue, 0, bounce)
 
-        if fused:
-            s = bounce_step_fused(sd, table, o, d, pix, smp, bounce, seed)
-        else:
-            s = bounce_step(sd, o, d, pix, smp, bounce, seed, use_pallas)
+        s = bounce_step(sd, o, d, pix, smp, bounce, seed)
         contrib = jnp.where(active[:, None], thr * s["contrib"], 0.0)
         fb = fb.at[pix].add(contrib)
 
@@ -1108,12 +721,11 @@ def render_rays(
     sample_ids,
     seed,
     max_depth: int,
-    use_pallas: bool = False,
     differentiable: bool = False,
 ):
     """Primary-ray generation + path tracing for (pixel, sample) pairs."""
     o, d, _times = generate_rays(cp, width, height, pixel_ids, sample_ids, seed)
     return trace(
         sd, o, d, pixel_ids, sample_ids, seed, max_depth,
-        use_pallas=use_pallas, differentiable=differentiable,
+        differentiable=differentiable,
     )

@@ -4,7 +4,7 @@ The reference dispatches ``Materials::scatter`` over a closed enum
 {Lambertian, Metal, Dielectric} (src/materials/mod.rs:16-38). Here materials
 are integer-typed rows of a parameter table and all three scatter programs
 evaluate branch-free on the whole wavefront, combined with ``jnp.where`` —
-the TPU-idiomatic form of static dispatch.
+the data-parallel form of static dispatch.
 
 Extension beyond the reference (per BASELINE.json "emission" gradients): an
 EMISSIVE material type whose radiance contribution is

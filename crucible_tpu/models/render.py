@@ -3,8 +3,9 @@
 Replaces the reference's mpsc pixel-queue + worker threads + DashMap gather
 (src/camera/cpu_threading.rs, SURVEY.md §2.7) with static tiling: the flat
 pixel grid is cut into fixed-size ray wavefronts, each traced by one jitted
-call; sample batches accumulate into a float framebuffer on device. Dynamic
-load balancing has no TPU analogue — tiles are uniform work by construction.
+call; sample batches accumulate into a float framebuffer on device. The
+persistent wavefront (``integrator.trace_persistent``) replaces dynamic load
+balancing: each lane regenerates its pixel's next sample as its path dies.
 
 Movie rendering mirrors src/scene/mod.rs:295-330: ``ceil(duration * fps)``
 frames written as ``<fname>/artifacts/imageNNN.ppm`` then assembled with
@@ -15,7 +16,6 @@ checkpoint/resume (an extension the reference lacks, SURVEY.md §5).
 
 from __future__ import annotations
 
-import os
 import math
 import shutil
 import subprocess
@@ -34,23 +34,6 @@ from crucible_tpu.models.scene import Scene, SceneData
 from crucible_tpu.utils import color as color_mod
 from crucible_tpu.io.image import write_image
 from crucible_tpu.utils import backend
-
-# Rays per jitted wavefront call. (R, N_spheres) intermediates dominate
-# memory: 2^16 rays x 512 spheres x 4 B = 128 MB per buffer on TPU HBM.
-DEFAULT_RAYS_PER_PASS_TPU = 1 << 16
-DEFAULT_RAYS_PER_PASS_CPU = 1 << 13
-
-# Megakernel cluster culling engages by default above this sphere-table row
-# count (cull=None). Single-tile scenes (book1's 512 rows) measured SLOWER
-# with culling on v5e (lax.cond overhead > skipped work); the r4 multi-tile
-# stress sweep (tools/tpu_bench.py stress) sets the crossover.
-CULL_MIN_ROWS = 1024
-# Above this row count the BRUTE megakernel is infeasible: its (N, T)
-# candidate intermediates exceed the v5e scoped-VMEM limit (7808 rows x 512
-# lanes OOM'd at 30.4 MB vs the 16 MB scope — r4 stress). The chunked
-# (cluster) path processes CLUSTER rows at a time and stays bounded.
-MEGA_MAX_BRUTE_ROWS = 4096
-
 
 @partial(jax.jit, static_argnames=("width", "height", "max_depth", "samples_in_pass"))
 def _render_tile(
@@ -76,20 +59,9 @@ def _render_tile(
     return rad.reshape(samples_in_pass, p, 3).sum(axis=0)
 
 
-def default_rays_per_pass() -> int:
-    return (
-        DEFAULT_RAYS_PER_PASS_TPU
-        if jax.default_backend() not in ("cpu",)
-        else DEFAULT_RAYS_PER_PASS_CPU
-    )
-
-
 @partial(
     jax.jit,
-    static_argnames=(
-        "width", "height", "max_depth", "lanes", "use_pallas", "schedule",
-    ),
-    donate_argnums=(),
+    static_argnames=("width", "height", "max_depth", "lanes", "schedule"),
 )
 def _render_persistent(
     sd: SceneData,
@@ -97,36 +69,22 @@ def _render_persistent(
     seed,
     spp,  # traced uint32 — one executable serves every sample count
     sample_start,  # traced uint32 — renders samples [sample_start, spp)
-    cluster_perm=None,  # megakernel chunk culling (built host-side)
-    cluster_bounds=None,
-    sphere_nodes=None,  # per-LANE sphere BVH (sphere_bvh_tables)
-    sphere_meta=None,
+    pixel_ids=None,
     *,
     width: int,
     height: int,
     max_depth: int,
     lanes: int,
-    use_pallas: bool,
     schedule: str = "pixel",
 ):
-    if schedule == "mega":
-        return integrator.trace_persistent_mega(
-            sd, cp, width, height, spp, max_depth, seed,
-            interpret=backend.pallas_interpret(),
-            cluster_perm=cluster_perm,
-            cluster_bounds=cluster_bounds,
-            sphere_nodes=sphere_nodes,
-            sphere_meta=sphere_meta,
+    if schedule == "queue":
+        return integrator.trace_persistent_queue(
+            sd, cp, width, height, spp, max_depth, seed, lanes,
             sample_start=sample_start,
         )
-    fn = (
-        integrator.trace_persistent_queue
-        if schedule == "queue"
-        else integrator.trace_persistent
-    )
-    return fn(
-        sd, cp, width, height, spp, max_depth, seed, lanes, use_pallas,
-        sample_start=sample_start,
+    return integrator.trace_persistent(
+        sd, cp, width, height, spp, max_depth, seed, lanes,
+        sample_start=sample_start, pixel_ids=pixel_ids,
     )
 
 
@@ -139,22 +97,24 @@ def render_image_persistent(
     max_depth: int,
     seed: int,
     lanes: int | None = None,
-    use_pallas: bool | None = None,
-    schedule: str = "auto",
+    schedule: str = "pixel",
     progress=None,
-    cull: bool | None = None,
     out_device: bool = False,
+    pixel_ids=None,
 ) -> np.ndarray:
     """Whole-image render in ONE device dispatch via the persistent
-    wavefront. The production TPU path.
+    wavefront — the GPU route for stills and movie frames.
 
-    ``schedule``: 'mega' (all-in-VMEM megakernel with per-tile exit — the
-    fast path for sphere scenes), 'record' (record-mode megakernel for the
-    geometry/decisions + jnp replay for the shading — the fast path for
-    image textures / equirect skies / nested checkers the megakernel's
-    in-VMEM shading can't take), 'pixel' (lane-per-pixel staged loop),
-    'queue' (strided global path schedule), or 'auto' (mega, else record,
-    else pixel).
+    ``schedule``: 'pixel' (lane-per-pixel, :func:`integrator.trace_persistent`)
+    or 'queue' (strided global path schedule,
+    :func:`integrator.trace_persistent_queue`).
+
+    ``lanes``: target lane count for the whole frame (default: the
+    platform route's).
+
+    ``pixel_ids``: render only these pixel ids -> (P, 3), with as many
+    lanes per pixel as the whole frame gets, so each pixel sums its samples
+    in the same order (``schedule='pixel'`` only).
 
     ``progress``: None (single dispatch — bit-exact reference), True
     (render in ~8 sample chunks, printing per-chunk progress to stderr —
@@ -162,25 +122,8 @@ def render_image_persistent(
     bars, src/camera/cpu_threading.rs:102-106), or a callable
     ``f(samples_done, samples_total, seconds)``. Chunked accumulation sums
     the same sample set in a different f32 order than one dispatch."""
-    auto = schedule == "auto"
-    if auto:
-        from crucible_tpu.models import replay as replay_mod
-
-        if integrator.megakernel_supported(sd, cp):
-            schedule = "mega"
-        elif integrator.fused_supported(sd):
-            # Staged loop with the fused intersect+fetch kernel — already
-            # fast (garden 18.8 Mrays/s); record+replay's per-chunk record
-            # buffers would only slow it down.
-            schedule = "pixel"
-        elif (
-            integrator.megakernel_record_supported(sd, cp)
-            and replay_mod.replay_supported(sd)
-            and backend.on_accelerator()  # interpret-mode is too slow
-        ):
-            schedule = "record"
-        else:
-            schedule = "pixel"
+    if schedule not in ("pixel", "queue"):
+        raise ValueError(f"unknown schedule {schedule!r}")
     if schedule == "queue":
         # int32 path ids (pixel * spp); the static guard inside
         # trace_persistent_queue vanishes once spp is traced, so guard here
@@ -191,100 +134,16 @@ def render_image_persistent(
                 f"{width}x{height}x{samples} >= 2^31; use schedule='pixel' "
                 f"or chunk samples"
             )
-    if use_pallas is None:
-        # The fused kernel avoids (R, N) HBM traffic entirely: measured
-        # 213M ray-sphere closest-hits/s at 1M lanes vs 29M for the jnp
-        # path on v5e. Pallas needs a real TPU (interpret mode is slow).
-        use_pallas = backend.on_accelerator()
     if lanes is None:
-        # Target lane count: enough to saturate the chip (sample groups
-        # replicate small pixel grids up to this), modest on CPU.
-        lanes = 1 << 20 if backend.on_accelerator() else 1 << 13
-    if sd.motion_exact and lanes > (1 << 16):
-        # Exact per-ray-time scenes gather (R, K, 3) timeline tracks in the
-        # leaf tests; the minor-dim padding (3 -> 128 lanes) of unrolled
-        # gathers blows the compile-time HBM estimate at 2^20 lanes (the
-        # moving_teapot OOM class). Exact mode is a correctness path —
-        # cap its wavefront.
-        lanes = 1 << 16
+        lanes = backend.route(sd=sd).lanes
+    if pixel_ids is not None:
+        if schedule != "pixel":
+            raise ValueError("pixel_ids needs schedule='pixel'")
+        lanes = -(-lanes // (width * height)) * pixel_ids.shape[0]
     kw = dict(
-        width=width,
-        height=height,
-        max_depth=max_depth,
-        lanes=lanes,
-        use_pallas=use_pallas,
+        width=width, height=height, max_depth=max_depth, lanes=lanes,
+        schedule=schedule,
     )
-    # Megakernel cluster culling (megakernel.cluster_spheres): measured
-    # SLOWER on v5e for single-tile scenes — 16 lax.cond chunks add ~8 us to
-    # an ~12 us tile-iteration while few chunks skip (book1, N=512 rows).
-    # On multi-tile sphere tables most chunks ARE far from most rays, and
-    # the r4 stress sweep (tools/tpu_bench.py stress; BASELINE.md) measured
-    # the crossover — `cull=None` picks by table size.
-    cluster_args = {}
-    rows = int(sd.sph_center.shape[0])
-    if cull is None:
-        cull = schedule in ("auto", "mega") and rows > CULL_MIN_ROWS
-    if (
-        not cull
-        and rows > MEGA_MAX_BRUTE_ROWS
-        and schedule in ("auto", "mega")
-        and backend.on_accelerator()
-    ):
-        raise ValueError(
-            f"brute megakernel infeasible at {rows} sphere rows (the (N, T) "
-            f"candidate buffers exceed scoped VMEM past "
-            f"{MEGA_MAX_BRUTE_ROWS}); pass cull=True (chunked) or a staged "
-            f"schedule"
-        )
-    if cull:
-        from crucible_tpu.ops.pallas import megakernel as mk
-
-        # Per-LANE sphere BVH (r5, sphere_bvh_tables) vs chunk-cond cull:
-        # the BVH walk skips subtrees per window where the chunk scan's
-        # tile-granular conds stopped paying (BASELINE.md r5). Static
-        # scenes only (animated bounds go stale; the cull path unions
-        # motion bounds). CRUCIBLE_SPHERE_BVH=0 restores the chunk scan.
-        use_sbvh = (
-            not sd.animated
-            and os.environ.get("CRUCIBLE_SPHERE_BVH", "1").lower()
-            not in ("0", "false", "off")
-        )
-        if use_sbvh:
-            perm, snodes, smeta = mk.sphere_bvh_tables(
-                np.asarray(sd.sph_center), np.asarray(sd.sph_radius),
-                np.asarray(sd.sph_active),
-            )
-            cluster_args = dict(
-                cluster_perm=jnp.asarray(perm),
-                sphere_nodes=jnp.asarray(snodes),
-                sphere_meta=jnp.asarray(smeta),
-            )
-        else:
-            perm, cbounds = mk.cluster_spheres(
-                np.asarray(sd.sph_center), np.asarray(sd.sph_radius),
-                np.asarray(sd.sph_active),
-                center_d=(
-                    np.asarray(sd.sph_center_d)
-                    if sd.sph_center_d is not None else None
-                ),
-                radius_d=(
-                    np.asarray(sd.sph_radius_d)
-                    if sd.sph_radius_d is not None else None
-                ),
-            )
-            cluster_args = dict(
-                cluster_perm=jnp.asarray(perm),
-                cluster_bounds=jnp.asarray(cbounds),
-            )
-    if schedule == "record":
-        from crucible_tpu.models import replay as replay_mod
-
-        report = progress if callable(progress) else None
-        fb = replay_mod.render_record_replay(
-            sd, cp, width, height, samples, max_depth, seed, progress=report
-        )
-        return np.asarray(fb).reshape(height, width, 3) / np.float32(samples)
-
     if progress is None:
         bounds = [(0, samples)]
         report = None
@@ -302,38 +161,13 @@ def render_image_persistent(
             )
         )
 
-    def dispatch(s0, s1, sched):
-        return _render_persistent(
-            sd, cp, jnp.uint32(seed), jnp.uint32(s1), jnp.uint32(s0),
-            schedule=sched, **(cluster_args if sched == "mega" else {}), **kw,
-        )
-
     t0 = time.time()
     fb = None
     for s0, s1 in bounds:
-        try:
-            out = dispatch(s0, s1, schedule)
-        except Exception as e:
-            # Auto mode degrades if the megakernel doesn't LOWER on this
-            # toolchain (Mosaic op coverage varies across jaxlib releases) —
-            # compile-time failures only; runtime errors re-raise so real
-            # megakernel regressions can't hide as 10x slowdowns
-            # (VERDICT r1 weak #7).
-            lowering_markers = ("Mosaic", "mosaic", "lowering", "Unsupported")
-            if not (
-                auto
-                and schedule == "mega"
-                and any(m in str(e) for m in lowering_markers)
-            ):
-                raise
-            print(
-                f"crucible_tpu: WARNING: megakernel failed to lower "
-                f"({type(e).__name__}); falling back to the staged 'pixel' "
-                f"schedule (expect ~10x slower renders)",
-                file=sys.stderr,
-            )
-            schedule = "pixel"
-            out = dispatch(s0, s1, schedule)
+        out = _render_persistent(
+            sd, cp, jnp.uint32(seed), jnp.uint32(s1), jnp.uint32(s0),
+            pixel_ids, **kw
+        )
         fb = out if fb is None else fb + out
         if report is not None:
             jax.block_until_ready(fb)
@@ -343,7 +177,8 @@ def render_image_persistent(
         # next frame's host-side scene rebuild with this dispatch): the
         # caller fetches with np.asarray(fb).reshape(h, w, 3) / samples.
         return fb
-    return np.asarray(fb).reshape(height, width, 3) / np.float32(samples)
+    img = np.asarray(fb) / np.float32(samples)
+    return img if pixel_ids is not None else img.reshape(height, width, 3)
 
 
 def render_image(
@@ -384,17 +219,24 @@ def render_image_data(
     verbose: bool = False,
     mode: str = "auto",
     out_device: bool = False,
+    pixel_ids=None,
 ) -> np.ndarray:
     """Render driver. ``mode``: 'persistent' (one-dispatch wavefront with
-    ray regeneration — default on accelerators), 'tiled' (lockstep tiles —
-    default on CPU, also the semantic reference), or 'auto'.
+    ray regeneration — the GPU route), 'tiled' (lockstep tiles — the CPU
+    route, also the semantic reference), or 'auto' (the platform's route,
+    utils/backend.py).
 
     ``out_device``: persistent mode may return the UNDIVIDED device
     framebuffer (P, 3) instead of a fetched (H, W, 3) array — the async
-    handle render_movie pipelines on; tiled/record paths still return np
-    (H, W, 3), so callers must handle both (see render_movie.finish)."""
+    handle render_movie pipelines on; the tiled path still returns np
+    (H, W, 3), so callers must handle both (see render_movie.finish).
+
+    ``pixel_ids``: render only these pixel ids of the frame -> (P, 3), each
+    pixel through the same arithmetic as in a whole-frame render
+    (parallel/render.py spreads blocks of a frame over devices)."""
+    route = backend.route(sd=sd)
     if mode == "auto":
-        mode = "persistent" if backend.on_accelerator() else "tiled"
+        mode = route.forward
     if mode == "persistent":
         # verbose -> chunked per-spp progress on stderr: the persistent-path
         # counterpart of the reference's per-thread indicatif bars
@@ -403,23 +245,30 @@ def render_image_data(
         return render_image_persistent(
             sd, cp, width, height, samples, max_depth, seed,
             progress=True if verbose else None, out_device=out_device,
+            pixel_ids=pixel_ids,
         )
-    rpp = rays_per_pass or default_rays_per_pass()
+    rpp = rays_per_pass or route.rays_per_pass
     num_pixels = width * height
     tile_pixels = max(1, min(num_pixels, rpp))
     samples_in_pass = max(1, rpp // tile_pixels)
     samples_in_pass = min(samples_in_pass, samples)
     seed_arr = jnp.uint32(seed)
 
-    accum = np.zeros((num_pixels, 3), np.float32)
+    if pixel_ids is None:
+        pixel_ids = np.arange(num_pixels, dtype=np.uint32)
+        frame = True
+    else:
+        pixel_ids = np.asarray(pixel_ids, np.uint32)
+        frame = False
+    n = pixel_ids.shape[0]
+    accum = np.zeros((n, 3), np.float32)
     t0 = time.time()
-    n_tiles = math.ceil(num_pixels / tile_pixels)
+    n_tiles = math.ceil(n / tile_pixels)
     for ti in range(n_tiles):
         lo = ti * tile_pixels
-        hi = min(num_pixels, lo + tile_pixels)
+        hi = min(n, lo + tile_pixels)
         # Fixed-size tiles keep one compiled executable: pad the tail tile.
-        ids = np.arange(lo, lo + tile_pixels, dtype=np.uint32)
-        ids = np.minimum(ids, num_pixels - 1)
+        ids = pixel_ids[np.minimum(np.arange(lo, lo + tile_pixels), n - 1)]
         ids_dev = jnp.asarray(ids)
         tile_sum = np.zeros((tile_pixels, 3), np.float32)
         s = 0
@@ -440,15 +289,15 @@ def render_image_data(
             s += sp
         accum[lo:hi] = tile_sum[: hi - lo]
         if verbose:
-            done = hi / num_pixels
+            done = hi / n
             sys.stderr.write(
                 f"\r  render {done * 100:5.1f}%  ({time.time() - t0:6.1f}s)"
             )
             sys.stderr.flush()
     if verbose:
         sys.stderr.write("\n")
-    img = accum.reshape(height, width, 3) / np.float32(samples)
-    return img
+    img = accum / np.float32(samples)
+    return img.reshape(height, width, 3) if frame else img
 
 
 def to_u8(img_linear: np.ndarray) -> np.ndarray:

@@ -1,18 +1,17 @@
 """Record/replay differentiable path tracing — the fast gradient path.
 
 The reference's hot loop (src/camera/ray_casting.rs:112-152) is a recursive
-product of attenuations; its TPU-forward counterpart is the wavefront
+product of attenuations; its batched counterpart is the wavefront
 integrator. Differentiating that forward directly (models/integrator.trace
 with ``differentiable=True``) is correct but slow: the ``jax.checkpoint``
-re-forward re-runs the full (R, N) candidate intersection every bounce and
-every per-winner ``jnp.take`` transposes into a scatter-add (15.6 ms per
-(1M, 3) scatter on v5e — tools/tpu_results.jsonl).
+re-forward re-runs the full candidate intersection every bounce, and every
+per-winner ``jnp.take`` transposes into a scatter-add.
 
-This module splits the work the TPU way:
+This module splits the work in two:
 
 1. ``trace_record`` — the FAST, non-differentiable forward. Runs the
-   lockstep wavefront (early-exit while_loop, fused Pallas intersection on
-   TPU) and records, per bounce, only the discrete outcomes: winner
+   lockstep wavefront (early-exit while_loop, fused closest-hit reduction)
+   and records, per bounce, only the discrete outcomes: winner
    primitive id (int32) and a bitmask (alive/hit/tri/scattered/front/
    reflect/degenerate/root1). Integers carry no tangents, so the records
    detach exactly the decisions the gradient stance already detached
@@ -25,10 +24,8 @@ This module splits the work the TPU way:
    ops/intersect.py), normals, albedos, scatter directions (RNG uniforms
    are pure pcg4d hashes, recomputed bit-identically). Per-bounce work is
    O(R) — no candidate matrices, no argmin — and all per-winner attribute
-   fetches go through ONE one-hot matmul per table (ops/gather.take_rows_mm):
-   measured best on v5e against plain row gathers (~1.7x slower in-context)
-   and against const/param split fetches (the backward is remat-dominated,
-   not transpose-dominated).
+   fetches go through ONE one-hot matmul per table (ops/gather.take_rows_mm),
+   whose backward is another matmul instead of a scatter-add.
 
 Gradients are mathematically identical to the detached-sampling estimator
 of the direct-AD path (same frozen decisions, same continuous tape);
@@ -42,8 +39,6 @@ and triangle-mesh hits via per-winner Möller–Trumbore recomputation.
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -59,7 +54,6 @@ from crucible_tpu.ops import intersect
 from crucible_tpu.ops.gather import take_rows_mm
 from crucible_tpu.utils import rng as crng
 from crucible_tpu.utils import vec
-from crucible_tpu.utils import backend
 
 T_MIN = integrator.T_MIN
 
@@ -146,7 +140,6 @@ def trace_record(
     sample_ids,
     seed,
     max_depth: int,
-    use_pallas: bool = False,
 ):
     """Fast non-differentiable forward -> per-bounce decision records.
 
@@ -171,7 +164,7 @@ def trace_record(
         bounce, o_c, d_c, alive, recbuf = state
         s = integrator.bounce_step(
             sd, o_c, d_c, pixel_ids, sample_ids, bounce, seed,
-            use_pallas=use_pallas, return_decisions=True,
+            return_decisions=True,
         )
         hit = alive & s["hit"]
         is_tri = s["is_tri"]
@@ -189,12 +182,7 @@ def trace_record(
             if sd.animated:
                 c_w = c_w + w[:, None] * jnp.take(sd.sph_center_d, i_s, axis=0)
                 r_w = r_w + w * jnp.take(sd.sph_radius_d, i_s, axis=0)
-        a_q = jnp.sum(d_c * d_c, axis=-1)
-        oc = c_w - o_c
-        h_q = jnp.sum(d_c * oc, axis=-1)
-        c_q = jnp.sum(oc * oc, axis=-1) - r_w * r_w
-        disc = jnp.maximum(h_q * h_q - a_q * c_q, 0.0)
-        root0 = (h_q - jnp.sqrt(disc)) / a_q
+        root0, _, _ = intersect.sphere_roots(o_c, d_c, c_w, r_w)
         root1 = ~(root0 > T_MIN)
 
         cont = hit & s["scattered"]
@@ -221,122 +209,6 @@ def trace_record(
     return recbuf
 
 
-def trace_record_mega(
-    sd: SceneData,
-    cp: CameraParams,
-    width: int,
-    height: int,
-    pixel_ids,
-    sample_ids,
-    seed,
-    max_depth: int,
-    interpret: bool = False,
-    radiance: bool = False,
-    accum_from: int = 0,
-):
-    """Fast record pass through the persistent MEGAKERNEL (record mode).
-
-    One lane per (pixel, sample) path; the kernel regenerates the primary
-    rays in-kernel (bit-identical pcg4d streams to generate_rays) and
-    streams per-bounce packed decision words — the same bit layout as
-    :func:`trace_record`, at megakernel speed (per-tile exit instead of
-    the staged loop's global lockstep barrier). Requires
-    integrator.megakernel_supported(sd, cp).
-
-    Returns packed records (D, R) int32; with ``radiance=True`` (the
-    fused record+radiance mode, r5) returns (rec, rad (R, 3)) — the
-    forward radiance accumulated by the same kernel loop.
-    """
-    _check_record_capacity(sd)
-    from crucible_tpu.ops.pallas import megakernel as mk
-
-    r = pixel_ids.shape[0]
-    r_pad = ((r + mk.TILE - 1) // mk.TILE) * mk.TILE
-    pix = jnp.zeros((r_pad,), jnp.int32).at[:r].set(pixel_ids.astype(jnp.int32))
-    # Padding lanes carry sample0 = 2^30: they never issue (their flag rows
-    # stay zero) and are sliced off below.
-    smp = jnp.full((r_pad,), jnp.int32(2**30)).at[:r].set(
-        sample_ids.astype(jnp.int32)
-    )
-    cam = integrator.mega_cam_vector(cp, width, height)
-    smem = jnp.stack(
-        [
-            jnp.int32(0),
-            jnp.asarray(seed, jnp.uint32).astype(jnp.int32),
-            jnp.int32(width),
-            jnp.asarray(max_depth, jnp.int32),
-            jnp.int32(accum_from),  # fused-radiance accumulation floor
-            jnp.int32(0), jnp.int32(0), jnp.int32(0),
-        ]
-    )
-    table = integrator.make_sphere_table(sd)
-    cbounds = sph_nodes = sph_meta = None
-    if sd.sph_perm is not None:
-        # Structure-walk record (r5 final): permute the table into BVH-leaf
-        # (static) or cluster (animated) order; the kernel de-permutes the
-        # winner id through the table's id column so the streamed records
-        # hold ORIGINAL ids — bit-compatible with trace_record.
-        n_struct = sd.sph_perm.shape[0]
-        if n_struct > table.shape[0]:
-            table = jnp.pad(table, ((0, n_struct - table.shape[0]), (0, 0)))
-        table = jnp.take(table, sd.sph_perm, axis=0)
-        sph_nodes, sph_meta, cbounds = sd.sph_nodes, sd.sph_meta, sd.sph_cbounds
-    if sd.num_tris > 0:
-        tri_nodes, tris, mats, tri_meta = integrator.make_tri_tables(sd)
-    else:
-        tri_nodes = tris = mats = tri_meta = None
-    acc, rec = mk.run_megakernel_record(
-        smem,
-        pix.reshape(1, r_pad),
-        smp.reshape(1, r_pad),
-        cam,
-        table,
-        tri_nodes,
-        tris,
-        mats,
-        tri_meta,
-        cbounds,
-        sph_nodes,
-        sph_meta,
-        max_depth=int(max_depth),
-        animated=bool(sd.animated),
-        cam_animated=bool(cp.animated),
-        tri_leaf=sd.bvh_leaf_size,
-        sph_leaf=mk.SPH_LEAF,
-        interpret=interpret,
-        radiance=radiance,
-    )
-    if radiance:
-        return rec[:, :r], acc[:, :r].T
-    return rec[:, :r]
-
-
-def _replay_kernel_mode() -> str:
-    """'on' / 'off' / 'auto' from CRUCIBLE_REPLAY_KERNEL (default auto =
-    in-Pallas replay on accelerators, jnp replay on CPU — the interpret-mode
-    kernel is too slow to default to; tests opt in explicitly)."""
-    import os
-
-    v = os.environ.get("CRUCIBLE_REPLAY_KERNEL", "auto").lower()
-    if v in ("1", "on", "true"):
-        return "on"
-    if v in ("0", "off", "false"):
-        return "off"
-    return "auto"
-
-
-def _use_replay_kernel(sd: SceneData) -> bool:
-    """Single routing predicate for the in-Pallas replay kernel."""
-    from crucible_tpu.ops.pallas import replay_kernel as _rk
-
-    mode = _replay_kernel_mode()
-    return (
-        mode != "off"
-        and _rk.supported(sd, int(sd.sph_center.shape[0]))
-        and (mode == "on" or backend.on_accelerator())
-    )
-
-
 def trace_replay(
     sd: SceneData,
     o,
@@ -351,8 +223,6 @@ def trace_replay(
     thr_in=None,
     return_carry: bool = False,
     accum_from: int = 0,
-    thr_mask=None,
-    rad_given=None,
 ):
     """Differentiable O(R * depth) replay of recorded decisions -> (R, 3).
 
@@ -374,34 +244,11 @@ def trace_replay(
     the depth-bucketed replay re-walks a lane's head rows from the primary
     ray instead of gathering float carries across a compaction boundary
     (see :func:`replay_bucketed`).
-
-    ``thr_mask``: (R,) bool — asserts that ``thr_in`` is exactly
-    ``where(thr_mask, 1, 0)`` (the bucketed callers' contract), which makes
-    the call eligible for the in-Pallas replay kernel
-    (ops/pallas/replay_kernel.py): VMEM-resident table fetch + hand-written
-    backward, the r5 deep-gradient lever. Radiance agrees with the jnp
-    replay to f32/FMA association (CLAUDE.md: exact pallas-vs-XLA
-    bit-matching is impossible); decisions are identical (frozen records).
     """
-    from crucible_tpu.ops.pallas import replay_kernel as _rk
-
-    if (
-        not early_exit
-        and not return_carry
-        and bounce0 == 0
-        and (thr_in is None or thr_mask is not None)
-        and _use_replay_kernel(sd)
-    ):
-        table = integrator.make_sphere_table(sd)
-        return _rk.trace_replay_mega(
-            table, o, d, pixel_ids, sample_ids, seed, rec[:max_depth],
-            accum_from=accum_from, valid=thr_mask,
-            interpret=backend.pallas_interpret(), rad_given=rad_given,
-        )
     r = o.shape[0]
-    table = integrator.make_sphere_table(sd)  # (N, 32), differentiable
+    table = integrator.make_sphere_table(sd)  # (N, 31), differentiable
     if sd.num_tris > 0:
-        _, _, mats, _ = integrator.make_tri_tables(sd)  # (L, 24)
+        mats = integrator.make_mat_table(sd)  # (L, 19)
     else:
         mats = None
     if sd.animated:
@@ -421,7 +268,6 @@ def trace_replay(
 
     n_imgs = len(sd.tex.images)
 
-
     @jax.checkpoint
     def step(carry, xs):
         o_c, d_c, thr, rad = carry
@@ -438,11 +284,6 @@ def trace_replay(
         root1 = (flags & F_ROOT1) > 0
 
         # --- winner attribute fetch: ONE one-hot matmul per table ----------
-        # Measured best on v5e: plain row gathers ran ~1.7x slower
-        # in-context, and splitting const/param columns into two matmuls
-        # (to shrink the backward transpose) cost more than it saved
-        # (unsplit bwd 0.839 s vs split 0.959 s at 1080p x 4spp d8) — the
-        # backward is remat + one-hot re-materialization, not transpose.
         srow = take_rows_mm(table, jnp.where(is_tri, 0, idx))  # (R, 32)
         c_w = srow[:, 0:3]
         r_w = srow[:, 3]
@@ -457,14 +298,8 @@ def trace_replay(
         # Hit t as the recorded root of the winner's quadratic — the same
         # implicit-function estimator as ops/intersect.py's custom VJP, but
         # on the primal tape (autodiff differentiates the closed form).
-        a_q = jnp.sum(d_c * d_c, axis=-1)
-        oc = c_w - o_c
-        h_q = jnp.sum(d_c * oc, axis=-1)
-        c_q = jnp.sum(oc * oc, axis=-1) - r_w * r_w
-        disc = h_q * h_q - a_q * c_q
-        pos = disc > 0.0
-        sqrtd = jnp.where(pos, jnp.sqrt(jnp.where(pos, disc, 1.0)), 0.0)
-        t_sph = (h_q + jnp.where(root1, sqrtd, -sqrtd)) / a_q
+        near, far, _ = intersect.sphere_roots(o_c, d_c, c_w, r_w)
+        t_sph = jnp.where(root1, far, near)
 
         if sd.num_tris > 0:
             ti = jnp.where(is_tri, idx, 0)
@@ -637,7 +472,7 @@ LONG_DIV = 64
 GRAD_SPLIT_DEPTH = 2
 GRAD_LONG_DIV = 4
 # Budgets at or below this replay unsplit in the gradient path (the
-# compaction gathers cost more than the saved rows — measured on v5e).
+# compaction gathers cost more than the few rows they save).
 GRAD_SPLIT_MIN_DEPTH = 12
 # Static narrow passes in the differentiable tail (capacity = TAIL_PASSES /
 # GRAD_LONG_DIV of all lanes; overflow poisons the result with NaN — loud,
@@ -663,8 +498,7 @@ def replay_split(
     are compacted to an R/long_div budget for the remaining rows, with a
     full-width lax.cond fallback when more lanes survive. Compaction is a
     prefix-sum enumeration + drop-mode scatter of lane ids — O(R), no sort
-    (a top_k over 8.3M lanes measured ~0.2 s on v5e, swamping the rows it
-    saved). Differentiable end-to-end when ``early_exit=False`` (static
+    (a top_k over millions of lanes costs more than the rows it saves). Differentiable end-to-end when ``early_exit=False`` (static
     scans; the indices are integers, the gather/scatter-add pair transposes
     exactly), so the gradient path shares it (``early_exit=True`` keeps the
     forward-only while_loop row walk).
@@ -809,9 +643,8 @@ def replay_bucketed(
     (src/camera/ray_casting.rs:112-152) without dynamic shapes.
 
     What it deliberately does NOT do (the r3 split's measured overhead):
-    hand float carries across the compaction boundary. (R, 3) state gathers
-    are layout-poisoned on TPU (minor dim 3 pads to 128 lanes) and their
-    backward transposes to full-width scatter-adds. Instead a bucket re-walks
+    hand float carries across the compaction boundary: (R, 3) state gathers
+    transpose to full-width scatter-adds in the backward pass. Instead a bucket re-walks
     its lanes' HEAD rows from the primary ray (regenerated bit-identically
     from the gathered integer pixel/sample ids — pcg4d streams are pure
     hashes) with radiance accumulation masked off below ``accum_from``; only
@@ -870,7 +703,7 @@ def replay_bucketed(
             rad_b = trace_replay(
                 sd, o_b, d_b, pix_b, smp_b, seed, dj,
                 jnp.take(rec[:dj], idx, axis=1),
-                thr_in=thr0, accum_from=d0, thr_mask=valid,
+                thr_in=thr0, accum_from=d0,
             )
             rad = rad.at[idx].add(
                 jnp.where(valid[:, None], rad_b, 0.0), mode="drop"
@@ -888,20 +721,17 @@ RECORD_DEEP_DIV = 12
 
 def record_two_level(
     sd, cp, width, height, pixel_ids, sample_ids, seed, max_depth,
-    head: int, div: int | None = None, interpret: bool = False,
-    record_mode: str = "auto", head_radiance: bool = False,
+    head: int, div: int | None = None,
 ):
     """Two-level decision record: full width to ``head`` rows, then a
     NARROW re-record of only the surviving lanes to ``max_depth``.
 
-    Why: the megakernel's per-TILE exit does not help deep scenes whose
-    rare deep lanes (glass TIR paths) are scattered across tiles — at the
-    book1 north-star config 0.45% of lanes run past row 32, ~2 per
-    512-lane tile, so a full-width depth-50 record pays ~50 rows in nearly
-    every tile. Re-recording the 2.14% survivors at r/div width re-traces
-    their paths from bounce 0 (decisions are a pure function of
-    (pixel, sample, seed) — bit-identical), so the deep rows cost 1/div of
-    full width.
+    Why: a full-width record pays every row for every lane while the loop
+    runs, and deep budgets run long tails — at the book1 north-star config
+    0.45% of lanes run past row 32. Re-recording the ~2% survivors of the
+    head at r/div width re-traces their paths from bounce 0 (decisions are
+    a pure function of (pixel, sample, seed) — bit-identical), so the deep
+    rows cost 1/div of full width.
 
     Returns (rec_h (head, R), rec_n (max_depth, r_n), idx_n (r_n,) lane
     ids, valid_n (r_n,) slot-filled mask, n_deep scalar). Overflow past
@@ -917,35 +747,12 @@ def record_two_level(
     if div is None:
         env_div = os.environ.get("CRUCIBLE_RECORD_DEEP_DIV")
         div = int(env_div) if env_div is not None else RECORD_DEEP_DIV
-    if record_mode == "auto":
-        record_mode = (
-            "mega"
-            if (
-                integrator.megakernel_record_supported(sd, cp)
-                and backend.on_accelerator()
-            )
-            else "staged"
-        )
 
-    def rec_pass(pix, smp, depth, radiance=False, accum_from=0):
-        if record_mode == "mega":
-            return trace_record_mega(
-                sd, cp, width, height, pix, smp, seed, depth,
-                interpret=interpret, radiance=radiance,
-                accum_from=accum_from,
-            )
-        assert not radiance, "fused head radiance requires the megakernel"
+    def rec_pass(pix, smp, depth):
         o, d, _ = generate_rays(cp, width, height, pix, smp, seed)
         return trace_record(sd, o, d, pix, smp, seed, depth)
 
-    # Fused head (r5): the head record also accumulates the head rows'
-    # forward radiance in-kernel, replacing the gradient path's separate
-    # head replay-forward dispatch (run_megakernel_record radiance mode).
-    rad_h = None
-    if head_radiance and record_mode == "mega":
-        rec_h, rad_h = rec_pass(pixel_ids, sample_ids, head, radiance=True)
-    else:
-        rec_h = rec_pass(pixel_ids, sample_ids, head)
+    rec_h = rec_pass(pixel_ids, sample_ids, head)
     cont = (rec_h[head - 1] & F_SCAT) > 0  # continued past the head rows
     n_deep = jnp.sum(cont.astype(jnp.int32))
     rank = jnp.cumsum(cont.astype(jnp.int32)) - 1
@@ -960,32 +767,21 @@ def record_two_level(
     pix_n = jnp.where(valid_n, jnp.take(pixel_ids, idx_n, axis=0), 0).astype(
         pixel_ids.dtype
     )
-    # Unfilled slots get the padding sample sentinel (2^30): the mega
-    # record never issues them (flags stay 0); staged records may trace
-    # them but their bucket slots are masked by valid_n downstream.
+    # Unfilled slots get a sample id no real lane uses (2^30); their
+    # records are traced but their bucket slots are masked by valid_n
+    # downstream.
     smp_n = jnp.where(
         valid_n,
         jnp.take(sample_ids, idx_n, axis=0).astype(jnp.int32),
         jnp.int32(2**30),
     ).astype(sample_ids.dtype)
-    if head_radiance and record_mode == "mega":
-        # Fused narrow radiance too: the re-record accumulates rows >= head
-        # for the deep survivors, so the bucketed replay needs NO forward
-        # dispatches at all — bucket primal values gather from rad_n.
-        rec_n, rad_n = rec_pass(
-            pix_n, smp_n, max_depth, radiance=True, accum_from=head
-        )
-        return rec_h, rec_n, idx_n, valid_n, n_deep, rad_h, rad_n
     rec_n = rec_pass(pix_n, smp_n, max_depth)
-    if head_radiance:
-        return rec_h, rec_n, idx_n, valid_n, n_deep, rad_h, None
     return rec_h, rec_n, idx_n, valid_n, n_deep
 
 
 def replay_bucketed_2l(
     sd, cp, width, height, o, d, pixel_ids, sample_ids, seed, max_depth,
     rec_h, rec_n, idx_n, valid_n, n_deep, *, spec=None, passes: int = 1,
-    rad_head=None, rad_narrow=None,
 ):
     """Depth-bucketed replay over a TWO-LEVEL record (record_two_level).
 
@@ -999,10 +795,7 @@ def replay_bucketed_2l(
     head = rec_h.shape[0]
     assert lims[0] == head, (lims, head)
     r = o.shape[0]
-    rad = trace_replay(
-        sd, o, d, pixel_ids, sample_ids, seed, head, rec_h,
-        rad_given=rad_head,
-    )
+    rad = trace_replay(sd, o, d, pixel_ids, sample_ids, seed, head, rec_h)
     if len(lims) == 1:
         return rad
     r_n = rec_n.shape[1]
@@ -1032,22 +825,10 @@ def replay_bucketed_2l(
             pix_b = jnp.take(pixel_ids, lane_b, axis=0)
             smp_b = jnp.take(sample_ids, lane_b, axis=0)
             o_b, d_b, _ = generate_rays(cp, width, height, pix_b, smp_b, seed)
-            rad_b_given = None
-            if rad_narrow is not None:
-                # Fused bucket primal: the narrow re-record already
-                # accumulated rows >= head per survivor (rows past a
-                # lane's depth are dead), so the bucket's forward value
-                # is a gather — no replay-forward dispatch.
-                rad_b_given = jnp.where(
-                    valid_b[:, None],
-                    jnp.take(rad_narrow, idx_b, axis=0),
-                    0.0,
-                )
             rad_b = trace_replay(
                 sd, o_b, d_b, pix_b, smp_b, seed, dj,
                 jnp.take(rec_n[:dj], idx_b, axis=1),
-                thr_in=thr0, accum_from=head, thr_mask=valid_b,
-                rad_given=rad_b_given,
+                thr_in=thr0, accum_from=head,
             )
             rad = rad.at[lane_b].add(
                 jnp.where(valid_b[:, None], rad_b, 0.0), mode="drop"
@@ -1056,82 +837,6 @@ def replay_bucketed_2l(
         rad = jnp.where(dropped > 0, jnp.float32(jnp.nan), rad)
     # Narrow-record overflow: deep lanes beyond r_n never re-recorded.
     return jnp.where(n_deep > r_n, jnp.float32(jnp.nan), rad)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("width", "height", "chunk_spp", "max_depth")
-)
-def _record_replay_chunk(
-    sd, cp, sample0, spp_total, seed, *, width, height, chunk_spp, max_depth
-):
-    """One sample chunk of the record+replay forward -> per-pixel sums.
-
-    ``sample0``/``spp_total`` are traced: every chunk (including a ragged
-    tail, whose lanes past spp_total are masked out through the kernel's
-    padding-lane mechanism) reuses ONE compiled executable."""
-    p = width * height
-    pix = jnp.tile(jnp.arange(p, dtype=jnp.uint32), chunk_spp)
-    smp = jnp.repeat(
-        sample0 + jnp.arange(chunk_spp, dtype=jnp.uint32), p
-    )
-    o, d, _ = generate_rays(cp, width, height, pix, smp, seed)
-    # Tail masking: lanes whose sample id is past the requested spp become
-    # padding lanes in the record kernel (sample0 = 2^30 -> never issue,
-    # flags 0 -> replay adds nothing).
-    smp_rec = jnp.where(smp < spp_total, smp, jnp.uint32(2**30))
-    rec = trace_record_mega(
-        sd, cp, width, height, pix, smp_rec, seed, max_depth,
-        interpret=backend.pallas_interpret(),
-    )
-    rad = replay_split(
-        sd, o, d, pix, smp, seed, max_depth, rec,
-        split_depth=SPLIT_DEPTH, long_div=LONG_DIV, early_exit=True,
-    )
-    return rad.reshape(chunk_spp, p, 3).sum(axis=0)
-
-
-def render_record_replay(
-    sd: SceneData,
-    cp: CameraParams,
-    width: int,
-    height: int,
-    spp: int,
-    max_depth: int,
-    seed,
-    rec_budget_bytes: int = 1 << 28,
-    progress=None,
-):
-    """Forward render for scenes the megakernel's SHADING can't take but its
-    geometry can: record-mode megakernel (decisions are albedo/sky
-    independent) + jnp replay for the radiance, whose XLA gathers handle
-    image textures, equirect skyboxes and nested checkers. The production
-    schedule for the earth/garden demo families (render.py 'record').
-
-    Chunks samples so the decision records stay under ``rec_budget_bytes``.
-    Returns the per-pixel radiance SUM (P, 3); divide by spp.
-    """
-    import time as _time
-
-    p = width * height
-    # 4 B per (bounce, lane): one packed int32 record word.
-    chunk_spp = int(max(1, min(spp, rec_budget_bytes // (4 * max_depth * p))))
-    fb = None
-    t0 = _time.time()
-    spp_t = jnp.uint32(spp)
-    seed_t = jnp.asarray(seed, jnp.uint32)
-    for s0 in range(0, spp, chunk_spp):
-        # Constant chunk_spp every iteration (the ragged tail is masked via
-        # spp_total inside the chunk) -> exactly ONE compiled executable.
-        out = _record_replay_chunk(
-            sd, cp, jnp.uint32(s0), spp_t, seed_t,
-            width=width, height=height, chunk_spp=chunk_spp,
-            max_depth=max_depth,
-        )
-        fb = out if fb is None else fb + out
-        if progress is not None:
-            jax.block_until_ready(fb)
-            progress(min(s0 + chunk_spp, spp), spp, _time.time() - t0)
-    return fb
 
 
 def render_rays_replay(
@@ -1143,8 +848,6 @@ def render_rays_replay(
     sample_ids,
     seed,
     max_depth: int,
-    use_pallas: bool = False,
-    record_mode: str = "auto",
     rec=None,
     split: bool | None = None,
     spec=None,
@@ -1154,12 +857,8 @@ def render_rays_replay(
 
     The records are integer-valued (no tangents), so under ``jax.grad`` the
     record pass contributes nothing to the tape and the gradient is exactly
-    the replay's detached-sampling estimator.
-
-    ``record_mode``: 'mega' (record-mode megakernel — the fast path),
-    'staged' (lockstep wavefront trace_record — the semantic reference), or
-    'auto' (mega when the scene supports it and a real accelerator is
-    present; interpret-mode pallas on CPU is too slow to default to).
+    the replay's detached-sampling estimator. The record pass is the staged
+    lockstep :func:`trace_record`.
 
     ``rec``: optional PRECOMPUTED packed records for these exact
     (pixel, sample, seed) lanes — skips the record pass entirely. The
@@ -1180,23 +879,13 @@ def render_rays_replay(
     divisor overrides (win over the env knobs) — the capacity-widening
     rungs of grad.loss_and_grad_recovering's overflow-recovery ladder.
     """
-    if record_mode == "auto":
-        record_mode = (
-            "mega"
-            if (
-                integrator.megakernel_record_supported(sd, cp)
-                and backend.on_accelerator()
-            )
-            else "staged"
-        )
     import os
 
     o, d, _ = generate_rays(cp, width, height, pixel_ids, sample_ids, seed)
-    # Shallow budgets replay unsplit: narrowing's compaction gathers at
-    # 8.3M lanes cost MORE than the rows they save (v5e, 1080p x 4spp d8:
-    # split fwd 1.15 s vs unsplit 0.33 s — TPU gathers ~7.5 ns/elem).
-    # Deep budgets (the 500-spp depth-50 north-star config) flip the
-    # trade: depth bucketing replaces 40+ full-width rows.
+    # Shallow budgets replay unsplit: narrowing's compaction gathers cost
+    # more than the few rows they save. Deep budgets (the 500-spp depth-50
+    # north-star config) flip the trade: depth bucketing replaces 40+
+    # full-width rows.
     if split is None:
         env = os.environ.get("CRUCIBLE_GRAD_SPLIT")
         if env is not None:
@@ -1209,66 +898,24 @@ def render_rays_replay(
         and os.environ.get("CRUCIBLE_GRAD_DEEP_IMPL") != "split"
         and os.environ.get("CRUCIBLE_GRAD_2L", "1") not in ("0", "off", "false")
     )
-    fused = record_mode == "mega" and rec is None and _use_replay_kernel(sd)
     if use_2l:
         # Two-level record + bucketed replay: full-width head record plus a
-        # narrow re-record of the deep survivors — the full-width deep
-        # record was the dominant cost of deep chunks (per-tile exit cannot
-        # help when rare deep lanes land in nearly every tile; see
-        # record_two_level). When the in-Pallas replay kernel is routable,
-        # the head record FUSES the head radiance in-kernel (r5) so the
-        # head replay-forward dispatch disappears.
+        # narrow re-record of the deep survivors (see record_two_level).
         lims, _ = _bucket_spec(max_depth, spec)
         out = record_two_level(
             jax.lax.stop_gradient(sd),
             jax.lax.stop_gradient(cp),
             width, height, pixel_ids, sample_ids, seed, max_depth,
             head=lims[0], div=record_div,
-            interpret=backend.pallas_interpret(),
-            record_mode=record_mode, head_radiance=fused,
         )
-        if fused:
-            rec_h, rec_n, idx_n, valid_n, n_deep, rad_h, rad_n = out
-        else:
-            rec_h, rec_n, idx_n, valid_n, n_deep = out
-            rad_h = rad_n = None
         return replay_bucketed_2l(
             sd, cp, width, height, o, d, pixel_ids, sample_ids, seed,
-            max_depth, rec_h, rec_n, idx_n, valid_n, n_deep, spec=spec,
-            rad_head=rad_h, rad_narrow=rad_n,
+            max_depth, *out, spec=spec,
         )
     # The record pass produces only integers, but its interior (early-exit
-    # while_loop, raw Pallas intersection) must not carry tangents at all —
-    # while_loop has no linearization with unknown primals and the fused
-    # kernel has no JVP rule. Detach every float input.
-    rad_mega = None
-    if rec is not None:
-        pass  # precomputed (frozen-decision training): skip the record pass
-    elif record_mode == "mega":
-        if fused and not split:
-            # Fused record+radiance (r5): the unsplit gradient path's
-            # forward IS the record pass — the kernel accumulates radiance
-            # while streaming decisions; the in-Pallas backward
-            # differentiates from the records alone.
-            rec, rad_mega = trace_record_mega(
-                jax.lax.stop_gradient(sd),
-                jax.lax.stop_gradient(cp),
-                width, height, pixel_ids, sample_ids, seed, max_depth,
-                interpret=backend.pallas_interpret(), radiance=True,
-            )
-        else:
-            rec = trace_record_mega(
-                jax.lax.stop_gradient(sd),
-                jax.lax.stop_gradient(cp),
-                width,
-                height,
-                pixel_ids,
-                sample_ids,
-                seed,
-                max_depth,
-                interpret=backend.pallas_interpret(),
-            )
-    else:
+    # while_loop) must not carry tangents at all — while_loop has no
+    # linearization with unknown primals. Detach every float input.
+    if rec is None:
         rec = trace_record(
             jax.lax.stop_gradient(sd),
             jax.lax.stop_gradient(o),
@@ -1277,16 +924,12 @@ def render_rays_replay(
             sample_ids,
             seed,
             max_depth,
-            use_pallas=use_pallas,
         )
     if not split:
-        return trace_replay(
-            sd, o, d, pixel_ids, sample_ids, seed, max_depth, rec,
-            rad_given=rad_mega,
-        )
+        return trace_replay(sd, o, d, pixel_ids, sample_ids, seed, max_depth, rec)
     if os.environ.get("CRUCIBLE_GRAD_DEEP_IMPL") == "split":
         # The r3 head/tail carry-handoff split, kept reachable for A/B
-        # measurement (BASELINE.md r4) — the bucketed replay replaced it.
+        # measurement — the bucketed replay replaced it.
         return replay_split(
             sd, o, d, pixel_ids, sample_ids, seed, max_depth, rec,
             split_depth=GRAD_DEEP_SPLIT_DEPTH, long_div=GRAD_DEEP_LONG_DIV,

@@ -16,7 +16,7 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import jax.numpy as jnp
-from flax import struct
+from crucible_tpu.utils.tree import pytree_dataclass, static_field
 
 from crucible_tpu.models import materials as mat_mod
 from crucible_tpu.models import textures as tex_mod
@@ -28,16 +28,12 @@ from crucible_tpu.io.obj import load_obj
 
 # Brute-force triangle intersection below this count; BVH above.
 BVH_MIN_TRIS = 64
-# Sphere-table row padding. The pallas kernels only need a SUBLANE (8)
-# multiple (ops/pallas/sphere_hit.py); 128 was conservative and taxed
-# mesh scenes: the teapot carries ~2 real spheres but every megakernel
-# iteration paid a 128-row quadratic. Measured on v5e (r5): teapot
-# 400w/32spp/d50 4.52 -> 4.92 Mrays/s with pad 8 (+9%, image mean
-# identical); sphere scenes unaffected (book1's 484 rows land near 512
-# either way).
-import os as _os
-
-SPHERE_PAD = int(_os.environ.get("CRUCIBLE_SPHERE_PAD", "8"))
+# Sphere-table row padding: keeps table shapes (and so compiled programs)
+# stable while spheres are added or hidden one at a time.
+SPHERE_PAD = 8
+# Triangles per BVH leaf. The staged traversal (ops/traverse.py) unrolls
+# this many sequential tests per leaf visit; larger leaves bloat compile.
+BVH_LEAF_SIZE = 32
 
 
 # --------------------------------------------------------------------------
@@ -200,7 +196,7 @@ class IdVendor:
 # --------------------------------------------------------------------------
 
 
-@struct.dataclass
+@pytree_dataclass
 class SceneData:
     """Flat SoA scene, ready for the wavefront integrator.
 
@@ -274,30 +270,19 @@ class SceneData:
     motion_t0: jnp.ndarray = None  # () shutter-open absolute time
     motion_t1: jnp.ndarray = None  # () shutter-close
 
-    # Sphere acceleration tables for structure-walk RECORD passes (r5
-    # final; megakernel.sphere_bvh_tables / cluster_spheres): host-built at
-    # scene build when the padded sphere table exceeds the forward path's
-    # cull crossover (render.CULL_MIN_ROWS). The permuted table's id column
-    # (31) de-permutes winner ids in-kernel, so records stay bit-compatible
-    # with the brute/staged record passes (tests/test_replay.py).
-    sph_perm: jnp.ndarray = None  # (N_struct,) int32 permutation
-    sph_nodes: jnp.ndarray = None  # (K, 16) f32 BVH slab boxes (static)
-    sph_meta: jnp.ndarray = None  # (3*(K+W),) int32 BVH metadata (static)
-    sph_cbounds: jnp.ndarray = None  # (K, 8) f32 cluster AABBs (animated)
-
     # --- static metadata ---------------------------------------------------
-    sky_kind: int = struct.field(pytree_node=False, default=sky_mod.DEFAULT)
-    num_spheres: int = struct.field(pytree_node=False, default=0)
-    num_tris: int = struct.field(pytree_node=False, default=0)
-    use_bvh: bool = struct.field(pytree_node=False, default=False)
-    bvh_leaf_size: int = struct.field(pytree_node=False, default=4)
-    animated: bool = struct.field(pytree_node=False, default=False)
+    sky_kind: int = static_field(sky_mod.DEFAULT)
+    num_spheres: int = static_field(0)
+    num_tris: int = static_field(0)
+    use_bvh: bool = static_field(False)
+    bvh_leaf_size: int = static_field(4)
+    animated: bool = static_field(False)
     # Exact per-ray-time evaluation engaged (see track fields above).
-    motion_exact: bool = struct.field(pytree_node=False, default=False)
+    motion_exact: bool = static_field(False)
     # Triangle tracks present (mesh keyframe mid-shutter). Covers both the
     # brute-force path (full (R, M) evaluation) and BVH meshes (per-candidate
     # evaluation in the leaf test; track rows are in LEAF order).
-    tri_exact: bool = struct.field(pytree_node=False, default=False)
+    tri_exact: bool = static_field(False)
 
 
 def _pad_to(n: int, mult: int) -> int:
@@ -450,7 +435,7 @@ class Scene:
     # --- constructors mirroring the reference ------------------------------
     @classmethod
     def new_image(cls, aspect_ratio, image_width, frame_rate=24.0, shutter_angle=180.0, threads=None):
-        del threads  # host threads have no TPU analogue
+        del threads  # parallelism is the device's, not host threads'
         return cls(aspect_ratio, image_width, frame_rate, shutter_angle, None)
 
     @classmethod
@@ -660,11 +645,7 @@ class Scene:
         models/timeline.py). The reference instead rebuilds its BVH every
         frame and re-evaluates timelines per ray (src/scene/mod.rs:333).
 
-        ``leaf_size=None`` picks a backend default: 64 on accelerators
-        (best teapot sweep point with the condless windowed walk —
-        tools/tpu_results.jsonl 10:32: 2.54/2.72/2.62 @ 32/64/128), 32 on
-        CPU (the staged traversal unrolls leaf_size sequential tests and
-        big leaves bloat compile).
+        ``leaf_size=None`` uses :data:`BVH_LEAF_SIZE`.
 
         ``bvh_method="sah"`` (default) uses the binned surface-area-heuristic
         split with leaf-size snapping; ``"median"`` reproduces the
@@ -680,9 +661,7 @@ class Scene:
         merely keeps a stale (still valid) order.
         """
         if leaf_size is None:
-            import jax as _jax
-
-            leaf_size = 64 if _jax.default_backend() != "cpu" else 32
+            leaf_size = BVH_LEAF_SIZE
         animated = self.is_animated
         if animated and t_open is None:
             t_open, t_close = self.scene_cam.shutter_window()
@@ -881,7 +860,7 @@ class Scene:
         # --- exact per-ray-time tracks (mid-shutter keyframes) --------------
         # BVH meshes included (r4): leaf tests evaluate per-candidate vertex
         # timelines at the ray's time (ops/traverse.py vertex_fn), with node
-        # bounds unioned over keyframe breakpoints above — the TPU analogue
+        # bounds unioned over keyframe breakpoints above — the wavefront analogue
         # of the reference evaluating timelines per ray through traversal
         # (src/objects/bvhwrapper.rs:102-106).
         tri_exact = tri_mid
@@ -894,9 +873,8 @@ class Scene:
 
             print(
                 "crucible_tpu: keyframe inside the shutter window -> exact "
-                "per-ray timeline evaluation engaged (staged integrator "
-                "path; megakernel/fused schedules do not apply — replay "
-                "gradients re-derive the exact tracks per winner)",
+                "per-ray timeline evaluation engaged (replay gradients "
+                "re-derive the exact tracks per winner)",
                 file=sys.stderr,
             )
 
@@ -973,49 +951,6 @@ class Scene:
                 motion_t1=jnp.asarray(t_close, jnp.float32),
             )
 
-        # --- sphere structure tables for record-mode walks (r5 final) -------
-        # Same crossover + structure choice as the forward render
-        # (render.py: sphere BVH for static scenes, motion-unioned cluster
-        # chunks for animated). Built here (host-side, geometry concrete)
-        # so record passes under jit can consume them as pytree leaves.
-        sph_struct = {}
-        struct_min = _os.environ.get("CRUCIBLE_RECORD_STRUCT_MIN")
-        if struct_min is None:
-            from crucible_tpu.models.render import CULL_MIN_ROWS
-
-            struct_min = CULL_MIN_ROWS
-        else:
-            struct_min = int(struct_min)
-        if n_pad > struct_min and bool(sph_active.any()):
-            from crucible_tpu.ops.pallas import megakernel as mk
-
-            use_sbvh = not animated and _os.environ.get(
-                "CRUCIBLE_SPHERE_BVH", "1"
-            ).lower() not in ("0", "false", "off")
-            if use_sbvh:
-                perm_s, snodes, smeta = mk.sphere_bvh_tables(
-                    sph_center, sph_radius, sph_active
-                )
-                sph_struct = dict(
-                    sph_perm=jnp.asarray(perm_s),
-                    sph_nodes=jnp.asarray(snodes),
-                    sph_meta=jnp.asarray(smeta),
-                )
-            else:
-                perm_s, cbounds = mk.cluster_spheres(
-                    sph_center, sph_radius, sph_active,
-                    center_d=(
-                        (sph_center_b - sph_center) if animated else None
-                    ),
-                    radius_d=(
-                        (sph_radius_b - sph_radius) if animated else None
-                    ),
-                )
-                sph_struct = dict(
-                    sph_perm=jnp.asarray(perm_s),
-                    sph_cbounds=jnp.asarray(cbounds),
-                )
-
         if not tables.mat_rows:  # empty scene still needs one material row
             tables.material(Lambertian.from_color((0.5, 0.5, 0.5)))
 
@@ -1063,7 +998,6 @@ class Scene:
             motion_exact=motion_exact,
             tri_exact=tri_exact and m > 0,
             **track_fields,
-            **sph_struct,
         )
         self._cache = sd
         self._cache_key = key

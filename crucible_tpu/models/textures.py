@@ -10,10 +10,9 @@ Checker composition: the reference lets checker children be arbitrary
 here may be any texture including other checkers: the table records the
 scene's maximum nesting depth (static) and evaluation resolves that many
 indirection levels with a fixed unroll — each level applies ITS OWN
-inv_scale parity before stepping into the chosen child. The fast fused /
-megakernel schedules bake one level of checker colors into their attribute
-tables, so deeper nesting routes through the staged jnp path (scenes with
-max_nest > 1 are excluded by their static predicates).
+inv_scale parity before stepping into the chosen child. The replay's
+winner-row table bakes one level of checker colors, so deeper nesting
+evaluates through :func:`value` there too.
 
 Texel gradients: image lookups are ``jnp.take`` gathers, so radiance is
 differentiable w.r.t. every texel and every solid color in the table.
@@ -24,14 +23,14 @@ from __future__ import annotations
 from typing import Tuple
 
 import jax.numpy as jnp
-from flax import struct
+from crucible_tpu.utils.tree import pytree_dataclass, static_field
 
 SOLID = 0
 CHECKER = 1
 IMAGE = 2
 
 
-@struct.dataclass
+@pytree_dataclass
 class TextureTable:
     """Parallel arrays over texture ids (T rows) + static tuple of images."""
 
@@ -41,10 +40,10 @@ class TextureTable:
     even: jnp.ndarray  # (T,) int32 child id (checker)
     odd: jnp.ndarray  # (T,) int32 child id (checker)
     image_id: jnp.ndarray  # (T,) int32 index into `images`
-    images: Tuple[jnp.ndarray, ...] = struct.field(default=())  # each (H, W, 3) f32
+    images: Tuple[jnp.ndarray, ...] = ()  # each (H, W, 3) f32
     # Deepest checker-of-checker chain in the table (static: sizes the
     # resolution unroll in `value`). 1 = plain checkers of leaves.
-    max_nest: int = struct.field(pytree_node=False, default=1)
+    max_nest: int = static_field(1)
 
 
 def image_lookup(img: jnp.ndarray, u: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:

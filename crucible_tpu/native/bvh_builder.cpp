@@ -118,7 +118,7 @@ int64_t crucible_build_bvh(const float* bb_min, const float* bb_max,
 // Binned SAH build (C++ counterpart of ops/bvh.py::_sah_split): pick the
 // (axis, plane) minimizing N_L*Area_L + N_R*Area_R over 16 centroid bins per
 // axis, with the split count snapped to a multiple of leaf_size (full leaves
-// for the megakernel's fixed-cost (L, T) Moller-Trumbore batches). Topology
+// for fixed-cost (L, T) Moller-Trumbore leaf batches). Topology
 // may differ from the Python builder in float tie-breaks; any valid BVH
 // yields the same closest-hit image, so equivalence is checked at the render
 // level (tests/test_ops.py).

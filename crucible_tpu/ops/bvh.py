@@ -11,7 +11,7 @@ emit nodes in DFS order with *skip links*:
   - traversal ends when the cursor reaches ``num_nodes``.
 
 This makes traversal a branch-free lockstep loop over a whole ray wavefront
-(see ops/traverse.py) — the TPU answer to divergent recursive descent.
+(see ops/traverse.py) — the wavefront answer to divergent recursive descent.
 
 Primitives are permuted into leaf order (``perm``) so leaves address
 contiguous ranges; animated refit recomputes only the box arrays bottom-up,
@@ -55,10 +55,10 @@ def _sah_split(span, centers, bb_min, bb_max, leaf_size=0):
 
     With ``leaf_size > 0`` the split COUNT is snapped to the nearest
     multiple of leaf_size (ordering by centroid along the SAH axis): the
-    megakernel's leaf test always costs ``tri_leaf`` MT rows regardless of
-    the leaf's fill, so partially-filled leaves burn rows for nothing —
-    snapping makes every leaf full except one ragged tail per subtree
-    (measured in tools/walk_sim.py)."""
+    staged traversal's leaf test always costs ``leaf_size`` MT rows
+    regardless of the leaf's fill, so partially-filled leaves burn rows for
+    nothing — snapping makes every leaf full except one ragged tail per
+    subtree."""
     c = centers[span]
     clo, chi = c.min(axis=0), c.max(axis=0)
     best = None  # (cost, axis, bin_id, bin_of)
@@ -133,10 +133,9 @@ def build_bvh(
       method: "median" reproduces the reference's sort + median-count split
         (bvhwrapper.rs:46-80); "sah" is a binned surface-area-heuristic
         split (16 centroid bins per axis). SAH produces spatially tighter,
-        less-overlapping children, which matters doubly for the megakernel's
-        TILE-coherent traversal: a tile descends into every node ANY of its
-        512 lanes hits, so child overlap multiplies union-leaf visits
-        (tools/walk_sim.py measures the difference).
+        less-overlapping children, which matters doubly for lockstep
+        traversal: the wavefront walks every node ANY of its rays hits, so
+        child overlap multiplies union-leaf visits.
       order_dir: optional (3,) direction; children are emitted NEAR-FIRST
         along it (child-centroid projection). The skip-link DFS then visits
         leaves roughly front-to-back for rays along that direction (e.g.

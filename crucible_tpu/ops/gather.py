@@ -1,15 +1,14 @@
 """Scatter-free differentiable row fetches for the replay gradient path.
 
-TPU scatters are the enemy of the backward pass: the VJP of ``jnp.take`` is
-a scatter-add, measured at 15.6 ms for one (1M, 3) update on v5e
-(tools/tpu_results.jsonl ``scatter_add_90K``), while gathers and matmuls at
-the same shape are ~free. Expressing the fetch as a one-hot matmul makes
-reverse-mode AD transpose it into ``onehot.T @ g`` — another matmul that
-rides the MXU instead of the scatter unit.
+The VJP of ``jnp.take`` is a scatter-add. Expressing the fetch as a one-hot
+matmul makes reverse-mode AD transpose it into ``onehot.T @ g`` — another
+matmul, deterministic and free of atomics. Whether a plain ``jnp.take``
+with its atomic scatter-add backward is faster on the GPU is not measured
+yet.
 
 Forward is exact: each output row of ``onehot @ table`` is a sum with
-exactly one non-zero f32 term (precision=HIGHEST keeps the MXU in f32 —
-the TPU default bf16 pass would corrupt geometry columns).
+exactly one non-zero f32 term. precision=HIGHEST keeps the product in full
+f32 (no TF32, no bf16 passes), which geometry columns need.
 """
 
 from __future__ import annotations
@@ -19,7 +18,7 @@ import jax.numpy as jnp
 
 # Materialized one-hot cap. The one-hot is (chunk, N) f32 live only inside
 # one bounce's (rematerialized) step, so a generous cap just avoids
-# pathological VMEM/HBM spikes at very large R * N.
+# pathological memory spikes at very large R * N.
 _MAX_ONEHOT_BYTES = 1 << 28  # 256 MB
 
 
@@ -32,7 +31,7 @@ def take_rows_mm(table: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
 
     Returns:
       (R, C) fetched rows. d(out)/d(table) flows through the matmul, so the
-      backward pass is a (N, R) x (R, C) MXU contraction — no scatter.
+      backward pass is a (N, R) x (R, C) contraction — no scatter.
     """
     r = idx.shape[0]
     n = table.shape[0]

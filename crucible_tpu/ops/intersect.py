@@ -1,16 +1,21 @@
 """Batched closest-hit primitive intersection.
 
 Sphere math follows the reference quadratic (src/objects/sphere.rs:61-105):
-``h = d.oc``, ``c = |oc|^2 - r^2``, roots ``(h -/+ sqrt(disc)) / a`` with the
-near root preferred, accepted iff strictly inside (t_min, t_max)
-(Interval::surrounds, src/utils.rs:656-659).
+``oc = c - o``, ``h = d.oc``, ``c = |oc|^2 - r^2``, roots
+``(h -/+ sqrt(h^2 - a c)) / a`` with the near root preferred, accepted iff
+strictly inside (t_min, t_max) (Interval::surrounds, src/utils.rs:656-659),
+evaluated in the equivalent geometric form of :func:`_roots`.
 
-TPU re-design: for R rays x N spheres the terms expand to
-
-    h  = (d @ C^T) - (d.o)          c = |C|^2 - 2 (o @ C^T) + |o|^2 - r^2
-
-i.e. two (R,3)x(3,N) matmuls plus rank-1 broadcasts — the whole quadratic
-rides the MXU instead of a scalar loop per leaf.
+For R rays x N spheres every (ray, sphere) pair forms its own ``oc`` from
+broadcast f32 subtractions and multiply-adds, and the winner's distance and
+index come from ONE variadic min-reduction (:func:`min_with_index`).
+Everything from the broadcasts to the reduction is elementwise-into-reduce,
+so XLA emits a single row-reduction fusion and no (R, N) array reaches
+device memory. Forming ``oc`` per pair avoids the cancellation that the
+expanded ``|c|^2 - 2 o.c + |o|^2 - r^2`` suffers for rays leaving a
+surface. Matrix units do not apply: K=3 is tiny, and bf16
+products corrupt the quadratic (7.6% wrong hit decisions measured against
+f32).
 
 Triangle math is batched Möller–Trumbore (src/objects/triangle.rs:84-140)
 with the same epsilon (1e-8) for parallel rays.
@@ -18,18 +23,32 @@ with the same epsilon (1e-8) for parallel rays.
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from crucible_tpu.utils import backend
 import numpy as np
 
 # Plain NumPy so importing never initializes a JAX backend.
 BIG = np.float32(3.0e38)  # sentinel "no hit" distance (finite to keep grads clean)
 MT_EPS = 1e-8
-# Largest sphere table the fused Pallas hit kernel takes (see hit_spheres).
-PALLAS_HIT_MAX_ROWS = 2048
+
+
+def min_with_index(t_all):
+    """(min over the last axis, index of the FIRST minimum) in one variadic
+    reduction — ``argmin`` semantics, without re-reading ``t_all`` for the
+    winner's value."""
+    idx = jax.lax.broadcasted_iota(jnp.int32, t_all.shape, t_all.ndim - 1)
+
+    def lexmin(a, b):
+        (ta, ia), (tb, ib) = a, b
+        take_b = (tb < ta) | ((tb == ta) & (ib < ia))
+        return jnp.where(take_b, tb, ta), jnp.where(take_b, ib, ia)
+
+    return jax.lax.reduce(
+        (t_all, idx),
+        (jnp.array(np.inf, t_all.dtype), jnp.int32(0)),
+        lexmin,
+        (t_all.ndim - 1,),
+    )
 
 
 def hit_spheres(o, d, centers, radii, active, t_min, t_max):
@@ -59,62 +78,26 @@ def hit_spheres(o, d, centers, radii, active, t_min, t_max):
       idx: (R,) int32 index of the winning sphere (0 where no hit)
       hit: (R,) bool
     """
-    import math
-
-    # The primal may ride the fused Pallas kernel (ops/pallas/sphere_hit.py)
-    # when shapes align and bounds are the standard (t_min, inf) — forward
-    # AND the remat recompute inside jax.checkpoint'd bounce scans then run
-    # at kernel speed, while the analytic winner-only backward needs no
-    # kernel VJP at all.
-    use_pl = (
-        centers.ndim == 2
-        and isinstance(t_min, (int, float))
-        and isinstance(t_max, (int, float))
-        and math.isinf(t_max)
-        and o.shape[0] % 512 == 0
-        and centers.shape[0] % 8 == 0
-        # The fused kernel materializes ~4 (N, 512) f32 intermediates in
-        # scoped VMEM: 1936 rows measured at the ~16 MB limit, 7744 OOM'd
-        # 66 MB (tools/tpu_results.jsonl structrec, r5 final). Large tables
-        # take the jnp (R, N) path, which XLA tiles freely.
-        and centers.shape[0] <= PALLAS_HIT_MAX_ROWS
-        and backend.on_accelerator()
-    )
     return _closest_hit(
         o, d, centers, radii,
         jnp.asarray(active).astype(jnp.float32),
         jnp.asarray(t_min, jnp.float32),
         jnp.asarray(t_max, jnp.float32),
-        float(t_min) if use_pl else 0.0,
-        use_pl,
     )
 
 
-def _closest_hit_primal(o, d, centers, radii, active_f, t_min, t_max, t_min_s, use_pl):
-    if use_pl:
-        from crucible_tpu.ops.pallas.sphere_hit import hit_spheres_pallas
-
-        csr = jnp.sum(centers * centers, -1) - radii * radii
-        return hit_spheres_pallas(o, d, centers, csr, active_f, t_min=t_min_s)
+@jax.custom_vjp
+def _closest_hit(o, d, centers, radii, active_f, t_min, t_max):
     return _hit_spheres_impl(o, d, centers, radii, active_f > 0.0, t_min, t_max)
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(7, 8))
-def _closest_hit(o, d, centers, radii, active_f, t_min, t_max, t_min_s, use_pl):
-    return _closest_hit_primal(
-        o, d, centers, radii, active_f, t_min, t_max, t_min_s, use_pl
-    )
-
-
-def _closest_hit_fwd(o, d, centers, radii, active_f, t_min, t_max, t_min_s, use_pl):
-    out = _closest_hit_primal(
-        o, d, centers, radii, active_f, t_min, t_max, t_min_s, use_pl
-    )
+def _closest_hit_fwd(o, d, centers, radii, active_f, t_min, t_max):
+    out = _hit_spheres_impl(o, d, centers, radii, active_f > 0.0, t_min, t_max)
     t, idx, hit = out
     return out, (o, d, centers, radii, active_f, t, idx, hit)
 
 
-def _closest_hit_bwd(t_min_s, use_pl, res, cts):
+def _closest_hit_bwd(res, cts):
     o, d, centers, radii, active_f, t, idx, hit = res
     t_bar = cts[0]  # cotangents of idx/hit are symbolic zeros
     if centers.ndim == 2:
@@ -149,49 +132,71 @@ def _closest_hit_bwd(t_min_s, use_pl, res, cts):
 _closest_hit.defvjp(_closest_hit_fwd, _closest_hit_bwd)
 
 
-def _hit_spheres_impl(o, d, centers, radii, active, t_min, t_max):
-    a = jnp.sum(d * d, axis=-1)[:, None]  # (R, 1)
-    if centers.ndim == 2:
-        # MXU path: static scene. f32 accumulation is mandatory — the TPU
-        # default matmul precision is bf16, which corrupts the quadratic
-        # (observed 7.6% wrong hit decisions vs CPU).
-        hi = jax.lax.Precision.HIGHEST
-        d_dot_c = jnp.dot(d, centers.T, precision=hi)  # (R, N)
-        o_dot_c = jnp.dot(o, centers.T, precision=hi)  # (R, N)
-        c_sq = jnp.sum(centers * centers, axis=-1)[None, :]  # (1, N)
-        r_sq = (radii * radii)[None, :]
-        act = active[None, :]
-    else:
-        # Animated path: per-ray centers.
-        d_dot_c = jnp.sum(d[:, None, :] * centers, axis=-1)
-        o_dot_c = jnp.sum(o[:, None, :] * centers, axis=-1)
-        c_sq = jnp.sum(centers * centers, axis=-1)
-        r_sq = radii * radii
-        act = active if active.ndim == 2 else active[None, :]
+def _roots(d, oc, r, a):
+    """Both roots of the sphere quadratic along ``d``, and ``q = r^2 - l^2``
+    (``disc / a``; a hit needs q >= 0).
 
-    h = d_dot_c - jnp.sum(d * o, axis=-1)[:, None]  # (R, N)
-    c = c_sq - 2.0 * o_dot_c + jnp.sum(o * o, axis=-1)[:, None] - r_sq
-    disc = h * h - a * c
+    ``d`` and ``oc = c - o`` are 3-tuples of components; every argument
+    broadcasts (per pair (R, N) in the closest-hit reduction, per winner
+    (R,) in the replay). Geometric form: the ray passes the center at
+    ``tc = h / a`` at distance ``l = |oc - tc d|``, and the roots are
+    ``tc -/+ sqrt(q / a)``. Unlike ``h^2 - a c``, ``r^2 - l^2`` cancels only
+    for grazing rays, so small distant spheres keep t to ~1e-7 relative."""
+    h = d[0] * oc[0] + d[1] * oc[1] + d[2] * oc[2]
+    tc = h / a
+    lx, ly, lz = (oc[k] - tc * d[k] for k in range(3))
+    q = r * r - (lx * lx + ly * ly + lz * lz)
     # Double-where so reverse-mode AD never sees d(sqrt)/dx at x<=0 = inf
     # (inf * 0 = NaN would poison camera/geometry gradients).
-    disc_pos = disc > 0.0
-    sqrtd = jnp.where(disc_pos, jnp.sqrt(jnp.where(disc_pos, disc, 1.0)), 0.0)
+    pos = q > 0.0
+    s = jnp.where(pos, jnp.sqrt(jnp.where(pos, q, 1.0) / a), 0.0)
+    return tc - s, tc + s, q
 
-    root0 = (h - sqrtd) / a
-    root1 = (h + sqrtd) / a
+
+def sphere_roots(o, d, c, r):
+    """Per-ray roots against one sphere each: o, d, c (R, 3), r (R,) ->
+    (near root, far root, q) as in :func:`_roots`."""
+    return _roots(
+        tuple(d[:, k] for k in range(3)),
+        tuple(c[:, k] - o[:, k] for k in range(3)),
+        r,
+        jnp.sum(d * d, axis=-1),
+    )
+
+
+def _closest_root(o, d, cx, cy, cz, r, act, t_min, t_max):
+    """Closest accepted root over the sphere axis -> (t, idx, hit).
+
+    ``cx``/``cy``/``cz``/``r``/``act`` are (1, N) for a static table or
+    (R, N) for per-ray geometry; each pair forms its own ``oc = c - o``."""
+    root0, root1, q = _roots(
+        tuple(d[:, k : k + 1] for k in range(3)),
+        (cx - o[:, 0:1], cy - o[:, 1:2], cz - o[:, 2:3]),
+        r,
+        jnp.sum(d * d, axis=-1)[:, None],
+    )
     ok0 = (root0 > t_min) & (root0 < t_max)
     ok1 = (root1 > t_min) & (root1 < t_max)
     root = jnp.where(ok0, root0, root1)
-    valid = (disc >= 0.0) & (ok0 | ok1) & act
-
-    t_all = jnp.where(valid, root, BIG)
-    idx = jnp.argmin(t_all, axis=-1).astype(jnp.int32)
-    t = jnp.take_along_axis(t_all, idx[:, None], axis=-1)[:, 0]
+    valid = (q >= 0.0) & (ok0 | ok1) & act
+    t, idx = min_with_index(jnp.where(valid, root, BIG))
     return t, idx, t < BIG
 
 
+def _hit_spheres_impl(o, d, centers, radii, active, t_min, t_max):
+    if centers.ndim == 2:
+        c, r, act = centers[None], radii[None, :], active[None, :]
+    else:
+        # Exact-motion path: per-ray centers (R, N, 3).
+        c, r = centers, radii
+        act = active if active.ndim == 2 else active[None, :]
+    return _closest_root(
+        o, d, c[..., 0], c[..., 1], c[..., 2], r, act, t_min, t_max
+    )
+
+
 def hit_spheres_moving(o, d, w, ca, cd, ra, rd, active, t_min, t_max):
-    """Closest hit against linearly-moving spheres, MXU-formulated.
+    """Closest hit against linearly-moving spheres.
 
     Motion model: center(w) = ca + w*cd, radius(w) = ra + w*rd with the
     per-ray shutter fraction w in [0,1] (models/timeline.py linear-shutter
@@ -199,11 +204,9 @@ def hit_spheres_moving(o, d, w, ca, cd, ra, rd, active, t_min, t_max):
     src/objects/sphere.rs:67-69 — identical for piecewise-linear tracks with
     no keyframe inside the frame's shutter window).
 
-    All (R, N) terms expand into static matmuls plus w-weighted lerps:
-      d.c(w)   = d@ca' + w*(d@cd')
-      |c(w)|^2 = |ca|^2 + 2w(ca.cd) + w^2|cd|^2      (per-sphere scalars)
-      r(w)^2   = ra^2 + 2w(ra*rd) + w^2 rd^2
-    so the animated path costs two extra matmuls and no (R, N, 3) tensors.
+    Each pair lerps its center and radius at its ray's w inside the fused
+    reduction, so the animated path adds one multiply-add per coordinate
+    and builds no (R, N, 3) tensor.
 
     Differentiable with an O(R) winner-only backward (custom VJP mirroring
     hit_spheres): dt/d(ca) = nvec/den per winner, the motion leaves pick up
@@ -263,38 +266,12 @@ _moving_hit.defvjp(_moving_hit_fwd, _moving_hit_bwd)
 
 
 def _moving_hit_impl(o, d, w, ca, cd, ra, rd, active_f, t_min, t_max):
-    active = active_f > 0.0
-    hi = jax.lax.Precision.HIGHEST
     wcol = w[:, None]  # (R, 1)
-    d_dot_c = jnp.dot(d, ca.T, precision=hi) + wcol * jnp.dot(d, cd.T, precision=hi)
-    o_dot_c = jnp.dot(o, ca.T, precision=hi) + wcol * jnp.dot(o, cd.T, precision=hi)
-    c_sq = (
-        jnp.sum(ca * ca, -1)[None, :]
-        + 2.0 * wcol * jnp.sum(ca * cd, -1)[None, :]
-        + (wcol * wcol) * jnp.sum(cd * cd, -1)[None, :]
+    cx, cy, cz = (ca[None, :, k] + wcol * cd[None, :, k] for k in range(3))
+    return _closest_root(
+        o, d, cx, cy, cz, ra[None, :] + wcol * rd[None, :],
+        (active_f > 0.0)[None, :], t_min, t_max,
     )
-    r_sq = (
-        (ra * ra)[None, :]
-        + 2.0 * wcol * (ra * rd)[None, :]
-        + (wcol * wcol) * (rd * rd)[None, :]
-    )
-
-    a = jnp.sum(d * d, axis=-1)[:, None]
-    h = d_dot_c - jnp.sum(d * o, axis=-1)[:, None]
-    c = c_sq - 2.0 * o_dot_c + jnp.sum(o * o, axis=-1)[:, None] - r_sq
-    disc = h * h - a * c
-    disc_pos = disc > 0.0
-    sqrtd = jnp.where(disc_pos, jnp.sqrt(jnp.where(disc_pos, disc, 1.0)), 0.0)
-    root0 = (h - sqrtd) / a
-    root1 = (h + sqrtd) / a
-    ok0 = (root0 > t_min) & (root0 < t_max)
-    ok1 = (root1 > t_min) & (root1 < t_max)
-    root = jnp.where(ok0, root0, root1)
-    valid = disc_pos & (ok0 | ok1) & active[None, :]
-    t_all = jnp.where(valid, root, BIG)
-    idx = jnp.argmin(t_all, axis=-1).astype(jnp.int32)
-    t = jnp.take_along_axis(t_all, idx[:, None], axis=-1)[:, 0]
-    return t, idx, t < BIG
 
 
 def sphere_uv(n):
@@ -354,9 +331,7 @@ def hit_triangles(o, d, v0, v1, v2, active, t_min, t_max, v0d=None, v1d=None, v2
         & (t < t_max)
         & (active if active.ndim == 2 else active[None, :])
     )
-    t_all = jnp.where(valid, t, BIG)
-    idx = jnp.argmin(t_all, axis=-1).astype(jnp.int32)
-    t_best = jnp.take_along_axis(t_all, idx[:, None], axis=-1)[:, 0]
+    t_best, idx = min_with_index(jnp.where(valid, t, BIG))
     return t_best, idx, t_best < BIG
 
 

@@ -156,12 +156,10 @@ def bvh_hit_triangles(
                     bv = (b[:, 0], b[:, 1], b[:, 2])
                     cv = (c[:, 0], c[:, 1], c[:, 2])
                 else:
-                    # COMPONENT-WISE (R,) gathers, never (R, 3): the minor
-                    # dim of 3 pads to 128 lanes in TPU tiling, and the
-                    # leaf_size-unrolled gathers' live (R, 3) buffers blew
-                    # the compile-time HBM estimate to 92 GB at 2^20 lanes
-                    # (moving_teapot r4 OOM — the (R,3) layout poison,
-                    # CLAUDE.md).
+                    # COMPONENT-WISE (R,) gathers, never (R, 3): the
+                    # leaf_size-unrolled gathers keep every candidate's
+                    # vertices live at once, and (R,) columns keep those
+                    # buffers dense.
                     def g3(arr):
                         return (
                             jnp.take(arr[:, 0], pid),

@@ -6,7 +6,7 @@ Axes:
     mean-reduced (SURVEY.md §2.13 "Sample parallelism").
 
 Because the RNG is a pure counter hash of (pixel, sample) (utils/rng.py),
-any (dp, sp) factorization renders the SAME image bit-for-bit as one chip.
+any (dp, sp) factorization draws the SAME samples as one device.
 """
 
 from __future__ import annotations
@@ -46,15 +46,10 @@ def pixel_sharding(mesh: Mesh) -> NamedSharding:
     return NamedSharding(mesh, P(DP_AXIS))
 
 
-def ray_sharding(mesh: Mesh) -> NamedSharding:
-    """Shard a flat (pixel*sample) ray axis over BOTH axes — rays are
-    embarrassingly parallel, so dp and sp collapse into one flat axis."""
-    return NamedSharding(mesh, P((DP_AXIS, SP_AXIS)))
-
-
 def initialize_distributed(coordinator: Optional[str] = None, num_processes: Optional[int] = None, process_id: Optional[int] = None):
-    """Multi-host bring-up via jax.distributed (DCN across hosts, ICI within
-    a slice). No-op when running single-process."""
+    """Multi-host bring-up via jax.distributed. No-op when running
+    single-process. ``coordinator`` is ``host:port`` of process 0; nothing
+    discovers it automatically."""
     if num_processes is None or num_processes <= 1:
         return
     jax.distributed.initialize(

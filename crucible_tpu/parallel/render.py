@@ -1,115 +1,31 @@
-"""Multi-chip render driver: pixels sharded over the device mesh.
+"""Multi-device render driver: one block of pixels per device of the mesh.
 
 User-facing counterpart of the test/driver-contract sharding (SURVEY.md
-§2.7 TPU plan): the flat pixel grid shards over the mesh's ``dp`` axis
-(NamedSharding), the scene/BVH/camera replicate into every chip's HBM, and
-XLA partitions the jitted render; the framebuffer gathers over ICI on the
-way out. Because the RNG is a pure counter hash (utils/rng.py), the sharded
-image is bit-identical to the single-chip render.
+§2.7): the flat pixel grid is cut into one contiguous block per device, the
+scene/BVH/camera replicate into every device's memory, and each device runs
+the platform route's still program (``render.render_image_data`` with
+``pixel_ids``: the persistent wavefront on a GPU, lockstep tiles on the
+CPU) over its block; the framebuffer gathers on the host. Each pixel goes
+through the same one-device arithmetic as in ``render.render_image``, so
+the image is bit-identical to a one-device render: the RNG is a pure
+counter hash (utils/rng.py), and no per-device-count compile can reorder
+the arithmetic. (An SPMD program over n GPUs is compiled apart from the
+one-device program, and the two contract multiply-adds into FMAs
+differently: ~1% of pixels moved by ~1e-6 on four H100s.)
 
-Multi-host: call ``parallel.mesh.initialize_distributed`` first; the same
-code then runs with a global mesh (ICI within a slice, DCN across hosts).
+The devices must be addressable by this process (one host).
 """
 
 from __future__ import annotations
 
-from functools import partial
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 
-from crucible_tpu.models import integrator
-from crucible_tpu.models.camera import CameraParams
-from crucible_tpu.models.scene import Scene, SceneData
+from crucible_tpu.models import render
+from crucible_tpu.models.scene import Scene
 from crucible_tpu.parallel import mesh as mesh_mod
-from crucible_tpu.utils import backend
-
-
-@partial(jax.jit, static_argnames=("width", "height", "spp", "max_depth", "use_pallas"))
-def _render_sharded(
-    sd: SceneData,
-    cp: CameraParams,
-    pixel_ids,
-    seed,
-    *,
-    width: int,
-    height: int,
-    spp: int,
-    max_depth: int,
-    use_pallas: bool,
-):
-    p = pixel_ids.shape[0]
-    pix = jnp.tile(pixel_ids, spp)
-    smp = jnp.repeat(jnp.arange(spp, dtype=jnp.uint32), p)
-    rad = integrator.render_rays(
-        sd, cp, width, height, pix, smp, seed, max_depth, use_pallas=use_pallas
-    )
-    return rad.reshape(spp, p, 3).mean(axis=0)
-
-
-def render_image_sharded_mega(
-    scene: Scene,
-    mesh=None,
-    samples: int | None = None,
-    max_depth: int | None = None,
-    seed: int | None = None,
-) -> np.ndarray:
-    """Multi-chip megakernel render: horizontal pixel BANDS shard over all
-    mesh devices via shard_map; each device runs the persistent megakernel
-    (ops/pallas/megakernel.py) on its band with GLOBAL pixel ids, so the
-    sharded image is bit-identical to the single-chip megakernel render.
-    Scene/camera replicate; the framebuffer gathers over ICI on the way out.
-
-    Requires ``integrator.megakernel_supported(sd, cp)``; falls back to
-    :func:`render_image_sharded` otherwise.
-    """
-    from jax.sharding import PartitionSpec as P
-
-    if mesh is None:
-        mesh = mesh_mod.make_mesh()
-    sd = scene.build()
-    cam = scene.scene_cam
-    cp = cam.params()
-    if not integrator.megakernel_supported(sd, cp):
-        import sys
-
-        print(
-            "crucible_tpu: WARNING: scene not megakernel-eligible "
-            "(image textures / equirect sky / animated mesh); "
-            "render_image_sharded_mega falling back to the staged sharded "
-            "path (~10x slower on real chips)",
-            file=sys.stderr,
-        )
-        return render_image_sharded(scene, mesh, samples, max_depth, seed)
-    w, h = cam.image_width, cam.image_height
-    spp = samples if samples is not None else cam.samples
-    depth = max_depth if max_depth is not None else cam.max_depth
-    seed_v = jnp.uint32(seed if seed is not None else scene.seed)
-
-    ndev = mesh.devices.size
-    band_h = (h + ndev - 1) // ndev
-    row0s = jnp.arange(ndev, dtype=jnp.int32) * band_h
-    interpret = backend.pallas_interpret()
-
-    def shard_fn(sd_, cp_, row0_, spp_, seed_):
-        fb = integrator.trace_persistent_mega(
-            sd_, cp_, w, h, spp_, depth, seed_,
-            interpret=interpret, row0=row0_[0], band_height=band_h,
-        )
-        return fb
-
-    axes = (mesh_mod.DP_AXIS, mesh_mod.SP_AXIS)
-    fn = jax.shard_map(
-        shard_fn,
-        mesh=mesh,
-        in_specs=(P(), P(), P(axes), P(), P()),
-        out_specs=P(axes),
-        check_vma=False,
-    )
-    fb = jax.jit(fn)(sd, cp, row0s, jnp.uint32(spp), seed_v)
-    img = np.asarray(fb)[: w * h].reshape(h, w, 3) / np.float32(spp)
-    return img
 
 
 def render_image_sharded(
@@ -118,37 +34,40 @@ def render_image_sharded(
     samples: int | None = None,
     max_depth: int | None = None,
     seed: int | None = None,
-    use_pallas: bool = False,
+    mode: str = "auto",
 ) -> np.ndarray:
-    """Render with pixels sharded across all devices of ``mesh`` (defaults
-    to a 1-D mesh over every local device). Returns (H, W, 3) float32."""
+    """Render with one pixel block per device of ``mesh`` (default: every
+    local device), each device fed by its own host thread so the devices
+    render concurrently. ``mode`` as in ``render.render_image_data``.
+    Returns (H, W, 3) float32, bit-identical to ``render.render_image``
+    on one device."""
     if mesh is None:
         mesh = mesh_mod.make_mesh()
+    devices = list(mesh.devices.flat)
     sd = scene.build()
     cam = scene.scene_cam
     cp = cam.params()
     w, h = cam.image_width, cam.image_height
     spp = samples if samples is not None else cam.samples
     depth = max_depth if max_depth is not None else cam.max_depth
+    seed = seed if seed is not None else scene.seed
 
     num_pixels = w * h
-    dp = mesh.shape[mesh_mod.DP_AXIS] * mesh.shape[mesh_mod.SP_AXIS]
-    pad = (-num_pixels) % dp
-    pixel_ids = np.minimum(np.arange(num_pixels + pad, dtype=np.uint32), num_pixels - 1)
+    block = -(-num_pixels // len(devices))
+    # The last block repeats the last pixel id; its copies are dropped.
+    pixel_ids = np.minimum(
+        np.arange(len(devices) * block, dtype=np.uint32), num_pixels - 1
+    ).reshape(len(devices), block)
 
-    sd_r = jax.device_put(sd, mesh_mod.replicated(mesh))
-    cp_r = jax.device_put(cp, mesh_mod.replicated(mesh))
-    pix_s = jax.device_put(jnp.asarray(pixel_ids), mesh_mod.ray_sharding(mesh))
+    def render_on(i):
+        # A thread per device: the tiled route waits on its device at every
+        # tile, and a thread that waits dispatches nothing.
+        dev = devices[i]
+        sd_d, cp_d = jax.device_put((sd, cp), dev)
+        return render.render_image_data(
+            sd_d, cp_d, w, h, spp, depth, seed, mode=mode, pixel_ids=pixel_ids[i]
+        )
 
-    out = _render_sharded(
-        sd_r,
-        cp_r,
-        pix_s,
-        jnp.uint32(seed if seed is not None else scene.seed),
-        width=w,
-        height=h,
-        spp=spp,
-        max_depth=depth,
-        use_pallas=use_pallas,
-    )
-    return np.asarray(out)[:num_pixels].reshape(h, w, 3)
+    with ThreadPoolExecutor(len(devices)) as pool:
+        blocks = list(pool.map(render_on, range(len(devices))))
+    return np.concatenate(blocks)[:num_pixels].reshape(h, w, 3)

@@ -1,6 +1,6 @@
 """Math core: angles, vectors, intervals, color pipeline, counter-based RNG.
 
-TPU-native analogue of the reference's ``src/utils.rs`` (913 LoC): instead of
+Batched analogue of the reference's ``src/utils.rs`` (913 LoC): instead of
 scalar ``Vec3``/``Color`` structs, everything here operates on batched
 ``jnp`` arrays whose last axis is the component axis.
 """

@@ -1,7 +1,7 @@
 """Observability: jax.profiler traces + throughput counters.
 
 SURVEY.md §5 — the reference has no tracing/profiling (criterion bench
-only); the TPU plan calls for jax.profiler traces and rays/sec counters.
+only); here jax.profiler traces and rays/sec counters.
 """
 
 from __future__ import annotations

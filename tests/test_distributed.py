@@ -1,7 +1,7 @@
 """Multi-host bring-up: exercise ``parallel.mesh.initialize_distributed``
 with a real 2-process jax.distributed cluster on CPU (jax.distributed
-supports CPU multi-process — the same code path that brings up DCN across
-TPU hosts, SURVEY.md §2.13).
+supports CPU multi-process — the same code path that brings up several
+GPU hosts, SURVEY.md §2.13).
 
 Runs each process as a subprocess so the coordinator/client lifecycle and
 the collective actually cross process boundaries.

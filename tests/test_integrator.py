@@ -2,12 +2,10 @@
 reference's ray_color (src/camera/ray_casting.rs:112-152) and materials,
 plus renderer-mode equivalence and animated-scene checks."""
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from crucible_tpu.models import demo, integrator, render
+from crucible_tpu.models import demo, render
 from crucible_tpu.models.scene import (
     Dielectric,
     Emissive,
@@ -106,6 +104,104 @@ class TestIntegratorSemantics:
         assert img[0, 0, 2] > img[0, 0, 0]
 
 
+def _fan(sc, n=80):
+    """An ``n``-triangle fan (> BVH_MIN_TRIS, so it is BVH-built) over a
+    ground sphere."""
+    import math
+
+    sc.add_element(
+        Sphere((0.0, -100.0, 0.0), 100.0, Lambertian.from_color((0.6, 0.6, 0.2))),
+        "ground",
+    )
+    for i in range(n):
+        a0 = 2 * math.pi * i / n
+        a1 = 2 * math.pi * (i + 1) / n
+        z0 = 0.3 + 0.1 * math.sin(5 * a0)
+        sc.add_element(
+            Triangle(
+                (0.8 * math.cos(a0), z0, 0.8 * math.sin(a0)),
+                (1.2 * math.cos(a1), 0.35, 1.2 * math.sin(a1)),
+                (0.0, 0.5, 0.0),
+                Metal((0.8, 0.7, 0.6), 0.2),
+            ),
+            f"tri{i}",
+        )
+    return n
+
+
+def _fan_scene(movie=False):
+    sc = (
+        Scene.new_movie(1.0, 48, 24.0, 360.0, 2.0) if movie
+        else Scene.new_image(1.0, 48)
+    )
+    cam = sc.scene_cam
+    cam.look_from((0.0, 1.5, 4.0))
+    cam.look_at((0.0, 0.3, 0.0))
+    cam.set_vfov(45.0)
+    n = _fan(sc)
+    return sc, n
+
+
+def _route_book1():
+    sc = demo.book1_end_scene(width=48)
+    return sc.build(), sc.scene_cam.params(), 48, 27, 4, 8
+
+
+def _route_animated_camera():
+    # Keyframed camera (shutter-varying basis) + defocus.
+    from crucible_tpu.models.timeline import LERP, WORLD
+
+    sc = Scene.new_movie(16.0 / 9.0, 64, 24.0, 180.0, 2.0)
+    cam = sc.scene_cam
+    cam.look_from((0.0, 1.0, -8.0))
+    cam.look_at((0.0, 0.5, 0.0))
+    cam.set_vfov(40.0)
+    cam.set_defocus_angle(0.5)
+    cam.set_focus_dist(8.0)
+    sc.add_element(
+        Sphere((0.0, -100.0, 0.0), 100.0, Lambertian.from_color((0.5, 0.7, 0.3))),
+        "ground",
+    )
+    sc.add_element(
+        Sphere((0.0, 1.0, 0.0), 1.0, Lambertian.from_color((0.9, 0.3, 0.2))),
+        "ball",
+    )
+    sc.cam_translate_point((6.0, 2.0, -6.0), 2.0, LERP, WORLD, "from")
+    cam.frame = 24  # mid-walk: camera moves within this frame's shutter
+    cp = cam.params()
+    assert cp.animated
+    return sc.build(), cp, cam.image_width, cam.image_height, 8, 6
+
+
+def _route_triangle_bvh():
+    sc, _ = _fan_scene()
+    sd = sc.build()
+    assert sd.use_bvh
+    return sd, sc.scene_cam.params(), 48, 48, 4, 5
+
+
+def _route_moving_mesh():
+    # Every fan triangle rises during the open shutter: linear-shutter
+    # vertex deltas through the BVH walk.
+    from crucible_tpu.models.timeline import LERP, LOCAL
+
+    sc, n = _fan_scene(movie=True)
+    for i in range(n):
+        sc.translate_point((0.0, 0.4, 0.0), 2.0, LERP, LOCAL, f"tri{i}")
+    sc.scene_cam.frame = 12
+    sd = sc.build()
+    assert sd.animated and sd.use_bvh and sd.tri_v0_d is not None
+    return sd, sc.scene_cam.params(), 48, 48, 4, 5
+
+
+_ROUTE_SCENES = dict(
+    book1=_route_book1,
+    animated_camera=_route_animated_camera,
+    triangle_bvh=_route_triangle_bvh,
+    moving_mesh=_route_moving_mesh,
+)
+
+
 class TestRendererModes:
     def test_persistent_schedules_equal_tiled(self):
         sc = demo.book1_end_scene(width=64)
@@ -119,253 +215,26 @@ class TestRendererModes:
             )
             np.testing.assert_allclose(a, b, atol=1e-5, err_msg=schedule)
 
-    def test_megakernel_matches_staged(self):
-        # Decision-light scene (lambertian only): the megakernel's f32
-        # reassociation cannot flip branch decisions -> tight match. Chaotic
-        # scenes (book1 glass) only match statistically; covered on-chip by
-        # tools/tpu_bench.py.
-        sc = demo.smoke_scene(width=64)
-        sd = sc.build()
-        cp = sc.scene_cam.params()
-        w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
-        assert integrator.megakernel_supported(sd, cp)
-        ref = integrator.trace_persistent(
-            sd, cp, w, h, 8, 8, jnp.uint32(0), lanes=512, use_pallas=False
-        )
-        mega = integrator.trace_persistent_mega(
-            sd, cp, w, h, jnp.uint32(8), 8, jnp.uint32(0), interpret=True
-        )
-        np.testing.assert_allclose(np.asarray(ref), np.asarray(mega), atol=1e-4)
+    @pytest.mark.parametrize(
+        "scene", ["book1", "animated_camera", "triangle_bvh", "moving_mesh"]
+    )
+    def test_gpu_route_matches_tiled(self, scene):
+        """The GPU route's forward (the persistent wavefront,
+        utils/backend.ROUTES["gpu"]) against the CPU route's lockstep tiles,
+        both run here: same RNG streams and decisions, so the images agree
+        up to f32 summation order — a silhouette sample may flip where the
+        two programs contract a sum differently."""
+        from crucible_tpu.utils import backend
 
-    def test_megakernel_animated_camera_matches_staged(self):
-        # Keyframed camera (shutter-varying basis) + defocus, lambertian-only
-        # so f32 reassociation cannot flip decisions.
-        from crucible_tpu.models.timeline import LERP, WORLD
-
-        sc = Scene.new_movie(16.0 / 9.0, 64, 24.0, 180.0, 2.0)
-        cam = sc.scene_cam
-        cam.look_from((0.0, 1.0, -8.0))
-        cam.look_at((0.0, 0.5, 0.0))
-        cam.set_vfov(40.0)
-        cam.set_defocus_angle(0.5)
-        cam.set_focus_dist(8.0)
-        sc.add_element(
-            Sphere((0.0, -100.0, 0.0), 100.0, Lambertian.from_color((0.5, 0.7, 0.3))),
-            "ground",
+        sd, cp, w, h, spp, depth = _ROUTE_SCENES[scene]()
+        assert backend.route("gpu", sd).forward == "persistent"
+        ref = render.render_image_data(sd, cp, w, h, spp, depth, 0, mode="tiled")
+        got = render.render_image_persistent(
+            sd, cp, w, h, spp, depth, 0, lanes=4096
         )
-        sc.add_element(
-            Sphere((0.0, 1.0, 0.0), 1.0, Lambertian.from_color((0.9, 0.3, 0.2))),
-            "ball",
-        )
-        sc.cam_translate_point((6.0, 2.0, -6.0), 2.0, LERP, WORLD, "from")
-        cam.frame = 24  # mid-walk: camera moves within this frame's shutter
-        sd = sc.build()
-        cp = cam.params()
-        assert cp.animated and integrator.megakernel_supported(sd, cp)
-        w, h = cam.image_width, cam.image_height
-        ref = integrator.trace_persistent(
-            sd, cp, w, h, 8, 6, jnp.uint32(0), lanes=512, use_pallas=False
-        )
-        mega = integrator.trace_persistent_mega(
-            sd, cp, w, h, jnp.uint32(8), 6, jnp.uint32(0), interpret=True
-        )
-        d = np.abs(np.asarray(ref) - np.asarray(mega))
-        # The staged jnp path factorizes the sphere quadratic differently
-        # (oc = c - o vs the kernel's expanded form), so ulp-level rounding
-        # can flip hit/miss exactly on silhouettes — a measure-zero set.
-        # Require agreement everywhere but such flips.
-        assert (d > 1e-4).mean() < 0.005, d.max()
-        assert d.mean() < 1e-3
-
-    def test_megakernel_swizzle_bit_exact(self):
-        # Lane assignment (scanline vs 32x16 pixel blocks) must not change
-        # any pixel: samples accumulate within one lane either way.
-        sc = demo.smoke_scene(width=64)
-        sd = sc.build()
-        cp = sc.scene_cam.params()
-        w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
-        a = integrator.trace_persistent_mega(
-            sd, cp, w, h, jnp.uint32(4), 6, jnp.uint32(0), interpret=True,
-            swizzle=True,
-        )
-        b = integrator.trace_persistent_mega(
-            sd, cp, w, h, jnp.uint32(4), 6, jnp.uint32(0), interpret=True,
-            swizzle=False,
-        )
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-    def test_megakernel_cluster_culling_exact(self):
-        # Chunk culling is a pure skip optimization: the clustered kernel
-        # must be BIT-identical to the brute-force megakernel.
-        from crucible_tpu.ops.pallas import megakernel as mk
-
-        sc = demo.book1_end_scene(width=48)
-        sd = sc.build()
-        cp = sc.scene_cam.params()
-        w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
-        plain = integrator.trace_persistent_mega(
-            sd, cp, w, h, jnp.uint32(4), 6, jnp.uint32(0), interpret=True
-        )
-        perm, bounds = mk.cluster_spheres(
-            np.asarray(sd.sph_center),
-            np.asarray(sd.sph_radius),
-            np.asarray(sd.sph_active),
-        )
-        clustered = integrator.trace_persistent_mega(
-            sd, cp, w, h, jnp.uint32(4), 6, jnp.uint32(0), interpret=True,
-            cluster_perm=jnp.asarray(perm), cluster_bounds=jnp.asarray(bounds),
-        )
-        np.testing.assert_array_equal(np.asarray(plain), np.asarray(clustered))
-
-    @pytest.mark.parametrize("sbvh", ["0", "1"])
-    def test_megakernel_cluster_culling_multitile(self, sbvh, monkeypatch):
-        """Acceleration bit-identity on a MULTI-TILE sphere table: BOTH
-        large-scene paths — the chunk-cond cull scan (CRUCIBLE_SPHERE_BVH=0)
-        and the r5 per-LANE sphere BVH walk (default) — are pure skip
-        optimizations and must match the brute kernel exactly. Routed
-        through the render driver's cull flag (tables built host-side)."""
-        from crucible_tpu.models import render
-
-        monkeypatch.setenv("CRUCIBLE_SPHERE_BVH", sbvh)
-        sc = demo.sphere_stress(width=24, copies=4)
-        sd = sc.build()
-        cp = sc.scene_cam.params()
-        w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
-        assert sd.sph_center.shape[0] >= 1536  # multi-tile (pad-8: 1936)
-        plain = render.render_image_persistent(
-            sd, cp, w, h, 2, 4, 0, schedule="mega", cull=False
-        )
-        culled = render.render_image_persistent(
-            sd, cp, w, h, 2, 4, 0, schedule="mega", cull=True
-        )
-        np.testing.assert_array_equal(np.asarray(plain), np.asarray(culled))
-
-    def test_megakernel_supercluster_hierarchy_exact(self, monkeypatch):
-        """The two-level (supercluster) chunk scan is a pure skip
-        optimization: with SUPER forced small so the hierarchy engages
-        (n_chunks > SUPER), the image must stay BIT-identical to the flat
-        cull scan and to the brute kernel (VERDICT r4 #3)."""
-        from crucible_tpu.models import render
-        from crucible_tpu.ops.pallas import megakernel as mk
-
-        monkeypatch.setenv("CRUCIBLE_SPHERE_BVH", "0")  # chunk-scan path
-        sc = demo.sphere_stress(width=24, copies=4)
-        sd = sc.build()
-        cp = sc.scene_cam.params()
-        w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
-        n_chunks = -(-sd.sph_center.shape[0] // mk.CLUSTER)
-        plain = render.render_image_persistent(
-            sd, cp, w, h, 2, 4, 0, schedule="mega", cull=False
-        )
-        monkeypatch.setattr(mk, "SUPER", 2)
-        assert n_chunks > 2  # hierarchy engaged
-        culled = render.render_image_persistent(
-            sd, cp, w, h, 2, 4, 0, schedule="mega", cull=True
-        )
-        np.testing.assert_array_equal(np.asarray(plain), np.asarray(culled))
-
-    def test_megakernel_moving_mesh_matches_staged(self):
-        """MOVING triangle meshes in-kernel (r4): linear shutter vertex
-        deltas lerped in the leaf test (table cols 16-24), winner normal
-        from the lerped-edge cross. The moving_teapot demo must match the
-        staged reference statistically (triangle-edge ulp flips)."""
-        from crucible_tpu.models import render
-
-        sc = demo.moving_teapot(duration=5.0)
-        sd = sc.build(leaf_size=8)
-        cp = sc.scene_cam.params()
-        assert sd.animated and sd.tri_v0_d is not None
-        assert integrator.megakernel_supported(sd, cp)
-        w, h = 48, 27
-        acc = integrator.trace_persistent_mega(
-            sd, cp, w, h, jnp.uint32(2), 4, jnp.uint32(0), interpret=True
-        )
-        img = np.asarray(acc).reshape(h, w, 3) / 2.0
-        ref = np.asarray(
-            render.render_image_data(
-                sd, cp, w, h, samples=2, max_depth=4, seed=0, mode="tiled"
-            )
-        )
-        d = np.abs(img - ref)
-        assert d.mean() < 3e-3 and (d > 1e-3).mean() < 0.03, d.max()
-
-    def test_megakernel_mxu_fetch_matches(self, monkeypatch):
-        """The one-hot MXU winner fetch (CRUCIBLE_MXU_FETCH) must be
-        bit-identical to the per-column masked sums. Interpret mode checks
-        the wiring in exact f32; the on-chip bf16-pass exactness is checked
-        by tools/tpu_bench.py mxufetch (sha256 equality)."""
-        from crucible_tpu.ops.pallas import megakernel as mk
-
-        sc = demo.book1_end_scene(width=32)
-        sd = sc.build()
-        cp = sc.scene_cam.params()
-        w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
-
-        def run():
-            jax.clear_caches()  # MXU_FETCH is not part of the jit key
-            return np.asarray(
-                integrator.trace_persistent_mega(
-                    sd, cp, w, h, jnp.uint32(2), 4, jnp.uint32(0),
-                    interpret=True,
-                )
-            )
-
-        monkeypatch.setattr(mk, "MXU_FETCH", False)
-        plain = run()
-        monkeypatch.setattr(mk, "MXU_FETCH", True)
-        mxu = run()
-        jax.clear_caches()
-        np.testing.assert_array_equal(plain, mxu)
-
-    def test_megakernel_triangle_bvh_matches_staged(self):
-        # 80-triangle fan (> BVH_MIN_TRIS) + ground sphere: the in-kernel
-        # tile-coherent BVH traversal must match the staged XLA traversal.
-        # Triangle-edge samples can land differently at the ulp level, so
-        # the assertion is statistical (see CLAUDE.md).
-        import math
-
-        sc = Scene.new_image(1.0, 48)
-        cam = sc.scene_cam
-        cam.look_from((0.0, 1.5, 4.0))
-        cam.look_at((0.0, 0.3, 0.0))
-        cam.set_vfov(45.0)
-        sc.add_element(
-            Sphere((0.0, -100.0, 0.0), 100.0, Lambertian.from_color((0.6, 0.6, 0.2))),
-            "ground",
-        )
-        for i in range(80):
-            a0 = 2 * math.pi * i / 80
-            a1 = 2 * math.pi * (i + 1) / 80
-            z0 = 0.3 + 0.1 * math.sin(5 * a0)
-            sc.add_element(
-                Triangle(
-                    (0.8 * math.cos(a0), z0, 0.8 * math.sin(a0)),
-                    (1.2 * math.cos(a1), 0.35, 1.2 * math.sin(a1)),
-                    (0.0, 0.5, 0.0),
-                    Metal((0.8, 0.7, 0.6), 0.2),
-                ),
-                f"tri{i}",
-            )
-        sd = sc.build()
-        cp = cam.params()
-        assert sd.use_bvh and integrator.megakernel_supported(sd, cp)
-        w, h = cam.image_width, cam.image_height
-        ref = integrator.trace_persistent(
-            sd, cp, w, h, 4, 5, jnp.uint32(0), lanes=512, use_pallas=False
-        )
-        mega = integrator.trace_persistent_mega(
-            sd, cp, w, h, jnp.uint32(4), 5, jnp.uint32(0), interpret=True
-        )
-        d = np.abs(np.asarray(ref) - np.asarray(mega))
+        d = np.abs(np.asarray(got) - np.asarray(ref))
         assert (d > 1e-3).mean() < 0.005, d.max()
         assert d.mean() < 1e-3
-
-    def test_megakernel_unsupported_scenes_fall_back(self):
-        # Image-textured scene -> staged path must be picked by auto.
-        sc = demo.earth(width=32)
-        sd = sc.build()
-        cp = sc.scene_cam.params()
-        assert not integrator.megakernel_supported(sd, cp)
 
     def test_seed_changes_noise_not_structure(self):
         sc = demo.smoke_scene(width=48)

@@ -1,13 +1,13 @@
 """IO + scene-API tests: id vendor anchors (src/scene/id_vendor.rs:51-75),
-OBJ parsing (src/asset_loader/obj_loader.rs), PPM format, the RGBE HDR
-codec, and asset resolution."""
+OBJ parsing (src/asset_loader/obj_loader.rs), PPM and PNG output, the RGBE
+HDR codec, and asset resolution."""
 
 import numpy as np
 import pytest
 
 from crucible_tpu.io import hdr as hdr_io
 from crucible_tpu.io.assets import build_asset_path
-from crucible_tpu.io.image import load_image, read_ppm, write_ppm
+from crucible_tpu.io.image import load_image, read_ppm, write_image, write_png, write_ppm
 from crucible_tpu.io.obj import load_obj, parse_obj_text
 from crucible_tpu.models.scene import IdVendor, Lambertian, Scene, Sphere
 
@@ -73,6 +73,60 @@ class TestPPM:
         write_ppm(p, np.zeros((2, 3, 3), np.uint8))
         head = p.read_text().splitlines()[:3]
         assert head == ["P3", "3 2", "255"]  # reference header (camera/mod.rs:285)
+
+
+def _decode_png(path):
+    """Minimal decoder for the writer's own output (8-bit RGB, filter 0)."""
+    import struct
+    import zlib
+
+    data = path.read_bytes()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos : pos + 4])
+        tag, body = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n : pos + 12 + n])
+        assert crc == zlib.crc32(tag + body)
+        chunks[tag] = chunks.get(tag, b"") + body
+        pos += 12 + n
+    w, h, depth, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    assert (depth, color) == (8, 2)
+    raw = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8)
+    rows = raw.reshape(h, 1 + 3 * w)
+    assert (rows[:, 0] == 0).all()
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+class TestPNG:
+    @pytest.mark.parametrize("shape", [(1, 1, 3), (4, 5, 3), (27, 48, 3)])
+    def test_round_trip(self, tmp_path, shape):
+        img = np.random.default_rng(1).integers(0, 256, shape, dtype=np.uint8)
+        p = tmp_path / "x.png"
+        write_png(p, img)
+        np.testing.assert_array_equal(_decode_png(p), img)
+
+    def test_write_image_dispatches_on_extension(self, tmp_path):
+        img = np.full((2, 3, 3), 7, np.uint8)
+        write_image(tmp_path / "a.png", img)
+        write_image(tmp_path / "a.ppm", img)
+        np.testing.assert_array_equal(_decode_png(tmp_path / "a.png"), img)
+        np.testing.assert_array_equal(read_ppm(tmp_path / "a.ppm"), img)
+
+    def test_rejects_non_rgb(self, tmp_path):
+        with pytest.raises(ValueError, match="H, W, 3"):
+            write_png(tmp_path / "x.png", np.zeros((4, 4), np.uint8))
+
+    def test_jpeg_without_pil_names_the_package(self, tmp_path, monkeypatch):
+        import sys
+
+        from crucible_tpu.io.image import load_image_path
+
+        p = tmp_path / "x.jpg"
+        p.write_bytes(b"\xff\xd8\xff")
+        monkeypatch.setitem(sys.modules, "PIL", None)
+        with pytest.raises(ImportError, match="Pillow"):
+            load_image_path(p)
 
 
 class TestHDR:

@@ -312,9 +312,6 @@ class TestOracleFeatureMatrix:
         sc.add_element(Sphere((0.0, -100.5, 0.0), 100.0, spec), "ground")
         sd = sc.build()
         assert sd.tex.max_nest == 2
-        from crucible_tpu.models import integrator
-
-        assert not integrator.fused_supported(sd)
         got = render.render_image(sc, samples=4, max_depth=3, seed=7)
         want = oracle.render(
             [oracle.OracleSphere((0.0, -100.5, 0.0), 100.0, _omat(spec))],

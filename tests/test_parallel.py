@@ -146,13 +146,27 @@ class TestShardedDriver:
         sharded = render_image_sharded(sc)
         np.testing.assert_array_equal(single, sharded)
 
-    def test_render_image_sharded_mega_bit_identical(self):
-        # Horizontal-band megakernel sharding with global pixel ids must be
-        # bit-identical to the single-chip megakernel render.
-        from crucible_tpu.models import render as srender
-        from crucible_tpu.parallel.render import render_image_sharded_mega
+    @pytest.mark.parametrize("n_devices", [3, 5, 8])
+    def test_chunking_keeps_bits(self, n_devices):
+        """Over any number of devices, the same image as one device. Of
+        1,296 pixels, 5 devices leave a ragged last block."""
+        from crucible_tpu.parallel.render import render_image_sharded
 
-        sc = demo.smoke_scene(width=64)
-        single = srender.render_image(sc, samples=4, max_depth=6, mode="persistent")
-        sharded = render_image_sharded_mega(sc, samples=4, max_depth=6)
-        np.testing.assert_array_equal(single, sharded)
+        sc = demo.smoke_scene(width=48)
+        kw = dict(samples=2, max_depth=3)
+        want = render_image_sharded(sc, mesh_mod.make_mesh(1), **kw)
+        got = render_image_sharded(sc, mesh_mod.make_mesh(n_devices), **kw)
+        assert got.shape == (27, 48, 3)
+        np.testing.assert_array_equal(got, want)
+
+    def test_gpu_route_blocks_match_whole_frame(self):
+        """The GPU route's still program (the persistent wavefront) over one
+        pixel block per device gives the whole-frame render's bits."""
+        from crucible_tpu.models import render as srender
+        from crucible_tpu.parallel.render import render_image_sharded
+
+        sc = demo.book1_end_scene(width=40)
+        kw = dict(samples=3, max_depth=4)
+        want = srender.render_image(sc, mode="persistent", **kw)
+        got = render_image_sharded(sc, mode="persistent", **kw)
+        np.testing.assert_array_equal(got, want)

@@ -27,6 +27,29 @@ def _rays(sc, width, height, spp, seed=0):
     return sd, cp, pix, smp
 
 
+def _record_replay_image(sc, spp, depth, seed, split=False):
+    """Mean radiance image through the staged record + the forward replay
+    (replay_split with early exit when ``split``)."""
+    sd, cp, pix, smp = _rays(
+        sc, sc.scene_cam.image_width, sc.scene_cam.image_height, spp
+    )
+    w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
+    seed = jnp.uint32(seed)
+    o, d, _ = generate_rays(cp, w, h, pix, smp, seed)
+    rec = replay_mod.trace_record(sd, o, d, pix, smp, seed, depth)
+    if split:
+        rad = replay_mod.replay_split(
+            sd, o, d, pix, smp, seed, depth, rec,
+            split_depth=replay_mod.SPLIT_DEPTH, long_div=replay_mod.LONG_DIV,
+            early_exit=True,
+        )
+    else:
+        rad = replay_mod.trace_replay(
+            sd, o, d, pix, smp, seed, depth, rec, early_exit=True
+        )
+    return np.asarray(rad).reshape(spp, h, w, 3).mean(axis=0)
+
+
 class TestTakeRowsMM:
     def test_matches_take(self):
         table = jnp.asarray(np.random.default_rng(0).normal(size=(37, 8)), jnp.float32)
@@ -255,169 +278,17 @@ class TestReplayGradientsFinite:
                 assert bool(jnp.isfinite(arr).all()), f"non-finite grad in {k}"
 
 
-class TestMegaRecordMode:
-    """Record-mode megakernel (interpret on CPU): records must be
-    semantically equivalent to the staged trace_record — identical pcg4d
-    streams, decisions equal except ulp silhouette flips — and the replay
-    over them must reproduce the forward image statistically."""
-
-    def _records(self, sc, width, spp=2, depth=6, seed=3):
-        sd = sc.build()
-        cp = sc.scene_cam.params()
-        w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
-        p = w * h
-        pix = jnp.tile(jnp.arange(p, dtype=jnp.uint32), spp)
-        smp = jnp.repeat(jnp.arange(spp, dtype=jnp.uint32), p)
-        seed = jnp.uint32(seed)
-        o, d, _ = generate_rays(cp, w, h, pix, smp, seed)
-        rec_s = replay_mod.trace_record(sd, o, d, pix, smp, seed, depth)
-        rec_m = replay_mod.trace_record_mega(
-            sd, cp, w, h, pix, smp, seed, depth, interpret=True
-        )
-        return sd, cp, (o, d, pix, smp, seed), map(np.asarray, (rec_s, rec_m))
-
-    @pytest.mark.parametrize("mk", [demo.book1_end_scene, demo.load_teapot])
-    def test_records_match_staged(self, mk):
-        sc = mk(width=32)
-        sd, cp, rays, (rec_s, rec_m) = self._records(sc, 32)
-        ess = replay_mod.F_ALIVE | replay_mod.F_HIT | replay_mod.F_SCAT
-        # Decisions equal except ulp silhouette flips (<1% of lanes).
-        assert ((rec_s & ess) == (rec_m & ess)).mean() > 0.99
-        hit_both = ((rec_s & rec_m) & replay_mod.F_HIT) > 0
-        ri_s, ri_m = rec_s >> 8, rec_m >> 8
-        rf_s, rf_m = rec_s & 255, rec_m & 255
-        assert (ri_s[hit_both] == ri_m[hit_both]).mean() > 0.99
-        assert (rf_s[hit_both] == rf_m[hit_both]).mean() > 0.99
-
-    def test_replay_over_mega_records_matches_image(self):
-        sc = demo.book1_end_scene(width=32)
-        depth = 8
-        sd, cp, (o, d, pix, smp, seed), (rec_s, rec_m) = self._records(
-            sc, 32, depth=depth
-        )
-        rad_m = np.asarray(
-            replay_mod.trace_replay(
-                sd, o, d, pix, smp, seed, depth, jnp.asarray(rec_m)
-            )
-        )
-        rad_fwd = np.asarray(
-            integrator.trace(sd, o, d, pix, smp, seed, depth)
-        )
-        # Ulp-flipped lanes take different (valid) sample paths; compare in
-        # aggregate, and exactly on the >97% of lanes whose SEMANTIC record
-        # content matches (bits that don't reach the replay's radiance —
-        # front/root1 of absorbed rows, winner ids of miss rows — are
-        # don't-cares the two kernels fill differently).
-        def canon(rec):
-            rf, ri = rec & 255, rec >> 8
-            hit = (rf & replay_mod.F_HIT) > 0
-            scat = (rf & replay_mod.F_SCAT) > 0
-            mask = (
-                (replay_mod.F_ALIVE | replay_mod.F_HIT | replay_mod.F_SCAT)
-                | np.where(hit, replay_mod.F_TRI, 0)
-                | np.where(
-                    scat,
-                    replay_mod.F_FRONT
-                    | replay_mod.F_ROOT1
-                    | replay_mod.F_REFL
-                    | replay_mod.F_DEGEN,
-                    0,
-                )
-            )
-            return rf & mask, np.where(hit, ri, 0)
-
-        cs = canon(np.asarray(rec_s))
-        cm = canon(np.asarray(rec_m))
-        same = np.all((cs[0] == cm[0]) & (cs[1] == cm[1]), axis=0)
-        assert same.mean() > 0.97
-        # Replay re-derives t per winner (different f32 association than the
-        # trace's (R,N) matmul), so even identical decisions drift ulps —
-        # same convention as TestReplayMatchesForward: means tight, lanes
-        # loose.
-        close = np.isclose(rad_m, rad_fwd, rtol=1e-3, atol=1e-3).all(axis=-1)
-        assert close[same].mean() > 0.98
-        np.testing.assert_allclose(rad_m.mean(), rad_fwd.mean(), atol=5e-3)
-
-    def test_flag_bits_in_lockstep_with_kernel(self):
-        """The kernel packs flag bits with hard-coded masks; they must match
-        the replay's F_* layout."""
+class TestRecordFormat:
+    def test_flag_bit_layout(self):
+        """The packed record word's flag byte layout (replay.F_*)."""
         assert (replay_mod.F_ALIVE, replay_mod.F_HIT, replay_mod.F_TRI,
                 replay_mod.F_SCAT, replay_mod.F_FRONT, replay_mod.F_REFL,
                 replay_mod.F_DEGEN, replay_mod.F_ROOT1) == (1, 2, 4, 8, 16, 32, 64, 128)
 
 
 class TestRecordSchedule:
-    """'record' render schedule (render.py): record-mode megakernel for
-    geometry + jnp replay for shading — the production path for image
-    textures, equirect skies and nested checkers (VERDICT r1 #2, solved by
-    moving shading OUT of the kernel instead of fighting Mosaic's gather
-    coverage)."""
-
-    @pytest.mark.parametrize("mk,depth", [(demo.earth, 6), (demo.garden_skybox, 5)])
-    def test_matches_staged(self, mk, depth):
-        from crucible_tpu.models import render
-
-        sc = mk(width=32)
-        sd = sc.build()
-        cp = sc.scene_cam.params()
-        w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
-        a = render.render_image_persistent(
-            sd, cp, w, h, 2, depth, 1, schedule="pixel", use_pallas=False
-        )
-        b = render.render_image_persistent(sd, cp, w, h, 2, depth, 1, schedule="record")
-        close = np.isclose(a, b, rtol=1e-3, atol=1e-3).mean()
-        assert close > 0.99, close
-        np.testing.assert_allclose(a.mean(), b.mean(), atol=2e-3)
-
-    def test_record_supported_predicates(self):
-        sc = demo.earth(width=32)
-        sd = sc.build()
-        cp = sc.scene_cam.params()
-        assert not integrator.megakernel_supported(sd, cp)  # image texture
-        assert integrator.megakernel_record_supported(sd, cp)
-        assert replay_mod.replay_supported(sd)
-
-    def test_moving_mesh_mega_records_replay(self):
-        """Record-mode megakernel over a MOVING BVH mesh (r4: shutter
-        deltas lerped in-kernel): the replay over mega records must match
-        the staged forward statistically — proves the kernel's per-lane
-        shutter fractions and moved-edge MT agree with the jnp lerp."""
-        sc = demo.moving_teapot(duration=5.0)
-        sd = sc.build(leaf_size=8)
-        cp = sc.scene_cam.params()
-        assert integrator.megakernel_record_supported(sd, cp)
-        w, h, spp, depth = 32, 18, 2, 4
-        p = w * h
-        pix = jnp.tile(jnp.arange(p, dtype=jnp.uint32), spp)
-        smp = jnp.repeat(jnp.arange(spp, dtype=jnp.uint32), p)
-        seed = jnp.uint32(3)
-        rec = replay_mod.trace_record_mega(
-            sd, cp, w, h, pix, smp, seed, depth, interpret=True
-        )
-        o, d, _ = generate_rays(cp, w, h, pix, smp, seed)
-        rad = np.asarray(
-            replay_mod.trace_replay(sd, o, d, pix, smp, seed, depth, rec)
-        )
-        ref = np.asarray(
-            integrator.render_rays(sd, cp, w, h, pix, smp, seed, depth)
-        )
-        d_ = np.abs(rad - ref)
-        assert d_.mean() < 3e-3 and (d_ > 1e-3).mean() < 0.03, d_.max()
-
-    def test_chunked_record_replay_sums(self):
-        """Chunking the record+replay over samples equals one chunk."""
-        from crucible_tpu.models import replay as R
-
-        sc = demo.earth(width=24)
-        sd = sc.build()
-        cp = sc.scene_cam.params()
-        w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
-        one = R.render_record_replay(sd, cp, w, h, 4, 4, 1)
-        # Budget forcing 1-sample chunks.
-        many = R.render_record_replay(
-            sd, cp, w, h, 4, 4, 1, rec_budget_bytes=8 * 4 * w * h
-        )
-        np.testing.assert_allclose(np.asarray(many), np.asarray(one), rtol=1e-5, atol=1e-5)
+    """Staged record + replay over it (models/replay.py): the lane-narrowed
+    replays must reproduce the unsplit replay and the tiled forward."""
 
     @pytest.mark.parametrize("depth", [8, 14])
     def test_grad_split_matches_unsplit(self, depth):
@@ -465,19 +336,14 @@ class TestRecordSchedule:
         )
 
     def test_split_tail_replay_matches_reference(self):
-        """max_depth past SPLIT_DEPTH triggers the head/tail lane-narrowing
-        (top_k compaction of deep lanes); radiance must match the tiled
-        reference bit-for-bit up to f32 association."""
+        """max_depth past SPLIT_DEPTH engages the forward head/tail
+        lane-narrowing (replay_split, early_exit=True) over staged records;
+        radiance must match the tiled reference up to f32 association."""
         from crucible_tpu.models import render
-        from crucible_tpu.models import replay as R
 
-        assert 12 > R.SPLIT_DEPTH + 2
-        sc = demo.earth(width=24)
-        sd = sc.build()
-        cp = sc.scene_cam.params()
-        w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
-        fb = R.render_record_replay(sd, cp, w, h, 3, 12, 0)
-        img = np.asarray(fb).reshape(h, w, 3) / np.float32(3)
+        assert 12 > replay_mod.SPLIT_DEPTH + 2
+        sc = demo.garden_skybox(width=24)
+        img = _record_replay_image(sc, spp=3, depth=12, seed=0, split=True)
         ref = np.asarray(
             render.render_image(sc, samples=3, max_depth=12, seed=0, mode="tiled")
         )
@@ -487,20 +353,14 @@ class TestRecordSchedule:
 
 class TestNestedCheckerRecordSchedule:
     def test_deep_nest_matches_tiled(self):
-        """The record schedule's replay shading resolves a 3-level nested
-        checker (each level with its own inv_scale) identically to the
-        tiled reference (VERDICT r3 weak #6 — previously unmeasured past
-        one level)."""
+        """The replay's shading resolves a 3-level nested checker (each
+        level with its own inv_scale) identically to the tiled reference
+        (VERDICT r3 weak #6 — previously unmeasured past one level)."""
         from crucible_tpu.models import render
-        from crucible_tpu.models import replay as R
 
         sc = demo.nested_checkers(width=24, nest=3)
-        sd = sc.build()
-        cp = sc.scene_cam.params()
-        w, h = sc.scene_cam.image_width, sc.scene_cam.image_height
-        assert sd.tex.max_nest == 3
-        fb = R.render_record_replay(sd, cp, w, h, 2, 4, 0)
-        img = np.asarray(fb).reshape(h, w, 3) / np.float32(2)
+        assert sc.build().tex.max_nest == 3
+        img = _record_replay_image(sc, spp=2, depth=4, seed=0)
         ref = np.asarray(
             render.render_image(sc, samples=2, max_depth=4, seed=0, mode="tiled")
         )
@@ -829,386 +689,3 @@ class TestTailOverflowGuard:
         np.testing.assert_allclose(
             np.asarray(rad_fwd), np.asarray(ref), rtol=1e-6, atol=1e-7
         )
-
-
-class TestStructureRecord:
-    """Structure-walk record passes (r5 final): scenes whose padded sphere
-    table exceeds the forward cull crossover build a sphere BVH (static)
-    or motion-unioned cluster chunks (animated) at scene build
-    (SceneData.sph_perm/...); the record kernel walks the PERMUTED table
-    and de-permutes winner ids through the table's id column (31), so
-    records are BIT-identical to the brute record kernel — which keeps
-    deep gradients available on multi-thousand-sphere scenes where the
-    brute (N, T) quadratic exceeds VMEM."""
-
-    def _scene(self, animated):
-        sc = demo.book1_end_scene(width=32)
-        if animated:
-            from crucible_tpu.models.timeline import LERP, WORLD
-
-            sc.translate_x(0.6, 1.0, LERP, WORLD, "large_dielectric")
-            sc.scene_cam.frame = 6
-        return sc
-
-    @pytest.mark.parametrize("animated", [False, True])
-    def test_structure_records_bit_match_brute(self, animated, monkeypatch):
-        sd0 = self._scene(animated).build()
-        monkeypatch.setenv("CRUCIBLE_RECORD_STRUCT_MIN", "64")
-        sc1 = self._scene(animated)
-        sd1 = sc1.build()
-        assert sd0.sph_perm is None and sd1.sph_perm is not None
-        if animated:
-            assert sd1.sph_cbounds is not None and sd1.sph_nodes is None
-        else:
-            assert sd1.sph_nodes is not None and sd1.sph_cbounds is None
-        cp = sc1.scene_cam.params()
-        w, h = 32, sc1.scene_cam.image_height
-        r = 1024
-        pix = jnp.arange(r, dtype=jnp.uint32) % (w * h)
-        smp = jnp.zeros((r,), jnp.uint32)
-        seed = jnp.uint32(7)
-        brute = np.asarray(
-            replay_mod.trace_record_mega(
-                sd0, cp, w, h, pix, smp, seed, 6, interpret=True
-            )
-        )
-        struct = np.asarray(
-            replay_mod.trace_record_mega(
-                sd1, cp, w, h, pix, smp, seed, 6, interpret=True
-            )
-        )
-        np.testing.assert_array_equal(brute, struct)
-        # Fused record+radiance through the structure path too.
-        rec_f, rad_f = replay_mod.trace_record_mega(
-            sd1, cp, w, h, pix, smp, seed, 6, interpret=True, radiance=True
-        )
-        np.testing.assert_array_equal(np.asarray(rec_f), brute)
-        _, rad_b = replay_mod.trace_record_mega(
-            sd0, cp, w, h, pix, smp, seed, 6, interpret=True, radiance=True
-        )
-        np.testing.assert_array_equal(np.asarray(rad_f), np.asarray(rad_b))
-
-    def test_big_brute_without_structure_routes_staged(self, monkeypatch):
-        """A sphere table past the brute VMEM cap with no structure built
-        (e.g. structure build disabled) must NOT claim mega-record support
-        — it routes to the staged record instead of OOMing the kernel."""
-        from crucible_tpu.models import render as render_mod
-
-        sd = self._scene(False).build()
-        assert sd.sph_perm is None
-        monkeypatch.setattr(render_mod, "MEGA_MAX_BRUTE_ROWS", 64)
-        assert not integrator.megakernel_record_supported(
-            sd, self._scene(False).scene_cam.params()
-        )
-        monkeypatch.setenv("CRUCIBLE_RECORD_STRUCT_MIN", "64")
-        sd2 = self._scene(False).build()
-        assert sd2.sph_perm is not None
-        assert integrator.megakernel_record_supported(
-            sd2, self._scene(False).scene_cam.params()
-        )
-
-
-class TestReplayKernel:
-    """In-Pallas replay step (ops/pallas/replay_kernel.py): the r5
-    deep-gradient lever. Forward radiance must match the jnp replay (to
-    f32/FMA association — CLAUDE.md: exact pallas-vs-XLA bit-matching is
-    impossible, and sqrt at near-tangent discriminants amplifies it);
-    the HAND-WRITTEN backward must match plain autodiff through the
-    identical per-bounce math tightly (that comparison shares the
-    association, so it isolates the custom-vjp wiring)."""
-
-    def _setup(self, depth=8, r=1024 + 128, width=64):
-        sc = demo.book1_end_scene(width=width)
-        sd = sc.build()
-        cp = sc.scene_cam.params()
-        h = sc.scene_cam.image_height
-        pix = jnp.arange(r, dtype=jnp.uint32) % (width * h)
-        smp = jnp.zeros((r,), jnp.uint32)
-        seed = jnp.uint32(7)
-        o, d, _ = generate_rays(cp, width, h, pix, smp, seed)
-        rec = replay_mod.trace_record(sd, o, d, pix, smp, seed, depth)
-        table = integrator.make_sphere_table(sd)
-        return sd, table, o, d, pix, smp, seed, rec
-
-    def test_supported_predicates(self):
-        from crucible_tpu.ops.pallas import replay_kernel as rk
-
-        assert rk.supported(demo.book1_end_scene(width=32).build(), 512)
-        assert not rk.supported(demo.earth(width=32).build(), 512)  # images
-        assert not rk.supported(demo.load_teapot(width=32).build(), 512)
-        sc = demo.smoke_scene(width=32)
-        from crucible_tpu.models.timeline import LERP, WORLD
-
-        sc.translate_x(0.6, 1.0, LERP, WORLD, "ball")
-        sc.scene_cam.frame = 6
-        assert not rk.supported(sc.build(), 512)  # animated
-        assert not rk.supported(
-            demo.book1_end_scene(width=32).build(), 4096
-        )  # table too large for the (N, TILE) one-hot
-
-    def test_forward_matches_jnp_replay(self):
-        from crucible_tpu.ops.pallas import replay_kernel as rk
-
-        sd, table, o, d, pix, smp, seed, rec = self._setup()
-        ref = np.asarray(
-            replay_mod.trace_replay(sd, o, d, pix, smp, seed, 8, rec)
-        )
-        got = np.asarray(
-            rk.trace_replay_mega(
-                table, o, d, pix, smp, seed, rec, interpret=True
-            )
-        )
-        assert np.isfinite(got).all()
-        np.testing.assert_allclose(got.mean(0), ref.mean(0), rtol=1e-3, atol=1e-3)
-        close = np.isclose(got, ref, rtol=1e-3, atol=1e-3).all(axis=-1)
-        assert close.mean() > 0.98, f"only {close.mean():.3f} lanes match"
-
-    def test_backward_matches_identical_math_autodiff(self):
-        """Kernel cotangents vs jax.grad through a pure-jnp loop over the
-        SAME `_bounce` + exact row gathers — isolates the hand-written
-        backward (phase-1 checkpointing, reverse vjp sweep, one-hot table
-        cotangent) from association noise."""
-        from crucible_tpu.ops.pallas import replay_kernel as rk
-        from crucible_tpu.utils import rng as crng
-
-        depth = 6
-        sd, table, o, d, pix, smp, seed, rec = self._setup(depth=depth, r=1024)
-        r = o.shape[0]
-        wgt = jnp.asarray(
-            np.random.default_rng(0).standard_normal((r, 3)), jnp.float32
-        )
-
-        def pure_loop(table, o, d):
-            carry = tuple(
-                x[None, :]
-                for x in (o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2])
-            )
-            ones = jnp.ones((1, r), jnp.float32)
-            carry = carry + (ones, ones, ones)
-            acc = [jnp.zeros((1, r), jnp.float32)] * 3
-            for it in range(depth):
-                dec = rk._decode(rec[it][None, :])
-                srow = jnp.take(table, dec["idx"][0], axis=0).T
-                u1, u2, ud = crng.uniform3(pix, smp, jnp.uint32(3 + it), seed)
-                carry, (dr, dg, db) = rk._bounce(
-                    carry, srow, dec, u1[None, :], u2[None, :], ud[None, :],
-                    True,
-                )
-                acc = [acc[0] + dr, acc[1] + dg, acc[2] + db]
-            return jnp.stack([acc[0][0], acc[1][0], acc[2][0]], axis=1)
-
-        def loss_pure(table, o, d):
-            return jnp.sum(pure_loop(table, o, d) * wgt)
-
-        def loss_kernel(table, o, d):
-            rad = rk.trace_replay_mega(
-                table, o, d, pix, smp, seed, rec, interpret=True
-            )
-            return jnp.sum(rad * wgt)
-
-        lp, gp = jax.value_and_grad(loss_pure, argnums=(0, 1, 2))(table, o, d)
-        lk, gk = jax.value_and_grad(loss_kernel, argnums=(0, 1, 2))(table, o, d)
-        assert float(lp) == pytest.approx(float(lk), rel=1e-3)
-        for name, a, b in zip(
-            ("g_table", "g_o", "g_d"), gk, gp
-        ):
-            a, b = np.asarray(a), np.asarray(b)
-            assert np.isfinite(a).all(), name
-            scale = max(float(np.abs(b).max()), 1e-6)
-            nd = np.abs(a - b) / scale
-            # Near-tangent lanes (disc ~ 0) amplify 1-ulp association
-            # differences through d(sqrt)/d(disc) into O(1) relative
-            # gradient noise — both values are valid subgradients of
-            # slightly different f32 functions. Require the bulk tight
-            # and bound the outlier tail.
-            frac = float((nd > 2e-4).mean())
-            # Per-lane cotangents (g_o, g_d) concentrate the silhouette
-            # noise one-lane-per-entry; the table cotangent averages it.
-            cap = 0.005 if name == "g_table" else 0.02
-            assert frac < cap, f"{name}: {frac:.4f} outlier fraction"
-            assert float(nd.max()) < 0.1, f"{name}: max {nd.max():.4f}"
-
-    def test_blocked_matches_legacy_bitwise(self):
-        """The lane-blocked (SUB, LANES) layout is the same per-lane op
-        sequence as the legacy (1, TILE) rows — radiance must be
-        BIT-identical; table cotangents differ only in reduction order
-        (per-sublane one-hot contractions sum in a different sequence)."""
-        from crucible_tpu.ops.pallas import replay_kernel as rk
-
-        sd, table, o, d, pix, smp, seed, rec = self._setup(
-            depth=6, r=1024 + 128
-        )
-        a = np.asarray(
-            rk.trace_replay_mega(
-                table, o, d, pix, smp, seed, rec,
-                interpret=True, blocked=False,
-            )
-        )
-        b = np.asarray(
-            rk.trace_replay_mega(
-                table, o, d, pix, smp, seed, rec,
-                interpret=True, blocked=True,
-            )
-        )
-        np.testing.assert_array_equal(a, b)
-
-        def loss(t, blocked):
-            return jnp.sum(
-                rk.trace_replay_mega(
-                    t, o, d, pix, smp, seed, rec,
-                    interpret=True, blocked=blocked,
-                )
-            )
-
-        ga = np.asarray(jax.grad(lambda t: loss(t, False))(table))
-        gb = np.asarray(jax.grad(lambda t: loss(t, True))(table))
-        assert np.isfinite(gb).all()
-        scale = max(float(np.abs(ga).max()), 1e-6)
-        np.testing.assert_allclose(gb / scale, ga / scale, rtol=0, atol=1e-5)
-
-    def test_accum_from_and_valid_mask(self):
-        """Bucket semantics: head rows below accum_from update the carry
-        only; invalid lanes replay to exactly zero (value AND cotangent)."""
-        from crucible_tpu.ops.pallas import replay_kernel as rk
-
-        depth = 6
-        sd, table, o, d, pix, smp, seed, rec = self._setup(depth=depth, r=1024)
-        r = o.shape[0]
-        valid = jnp.arange(r) % 3 != 0
-        thr0 = jnp.where(valid[:, None], jnp.ones((r, 3), jnp.float32), 0.0)
-        ref = np.asarray(
-            replay_mod.trace_replay(
-                sd, o, d, pix, smp, seed, depth, rec,
-                thr_in=thr0, accum_from=3,
-            )
-        )
-        got = np.asarray(
-            rk.trace_replay_mega(
-                table, o, d, pix, smp, seed, rec,
-                accum_from=3, valid=valid, interpret=True,
-            )
-        )
-        v = np.asarray(valid)
-        assert (got[~v] == 0).all() and (ref[~v] == 0).all()
-        np.testing.assert_allclose(
-            got[v].mean(0), ref[v].mean(0), rtol=1e-3, atol=1e-3
-        )
-        g = jax.grad(
-            lambda t: jnp.sum(
-                rk.trace_replay_mega(
-                    t, o, d, pix, smp, seed, rec,
-                    accum_from=3, valid=valid, interpret=True,
-                )
-            )
-        )(table)
-        assert np.isfinite(np.asarray(g)).all()
-
-    def test_loss_and_grad_routing_on_off(self, monkeypatch):
-        """End-to-end loss_and_grad with the kernel forced on equals the
-        jnp replay to estimator tolerance, and routing honors the env."""
-        sc = demo.book1_end_scene(width=48)
-        sd = sc.build()
-        cp = sc.scene_cam.params()
-        w, h = 48, sc.scene_cam.image_height
-        pix = jnp.arange(w * h, dtype=jnp.uint32)
-        target = jnp.zeros((w * h, 3), jnp.float32)
-        params = G.extract_params(sd, cp)
-        kw = dict(width=w, height=h, spp=2, max_depth=16)
-
-        monkeypatch.setenv("CRUCIBLE_REPLAY_KERNEL", "0")
-        jax.clear_caches()
-        l0, g0 = G.loss_and_grad(
-            params, sd, cp, target, pix, jnp.uint32(3), **kw
-        )
-        monkeypatch.setenv("CRUCIBLE_REPLAY_KERNEL", "1")
-        jax.clear_caches()
-        l1, g1 = G.loss_and_grad(
-            params, sd, cp, target, pix, jnp.uint32(3), **kw
-        )
-        jax.clear_caches()
-        assert float(l0) == pytest.approx(float(l1), rel=1e-3)
-        for key in ("mat_emission", "tex_color"):
-            a, b = np.asarray(g0[key]), np.asarray(g1[key])
-            scale = max(float(np.abs(a).max()), 1e-6)
-            np.testing.assert_allclose(
-                b / scale, a / scale, rtol=0, atol=5e-3, err_msg=key
-            )
-
-    def test_fd_albedo_with_kernel(self, monkeypatch):
-        """The standard FD acceptance passes through the kernel path."""
-        monkeypatch.setenv("CRUCIBLE_REPLAY_KERNEL", "1")
-        jax.clear_caches()
-        try:
-            _fd_vs_grad(demo.smoke_scene(width=32), "tex_color")
-        finally:
-            jax.clear_caches()
-
-
-class TestFusedRecordRadiance:
-    """Fused record+radiance forward (r5): run_megakernel_record with
-    radiance=True accumulates the forward radiance in the same loop that
-    streams decisions, and render_rays_replay routes its value through the
-    given-forward custom_vjp (no separate replay-forward dispatch). The
-    primal must match the staged/tiled reference statistically and the
-    gradients must match the non-fused kernel path through the loss
-    cotangent."""
-
-    def test_fused_routing_and_equivalence(self, monkeypatch):
-        monkeypatch.setenv("CRUCIBLE_REPLAY_KERNEL", "1")
-        jax.clear_caches()
-        try:
-            sc = demo.book1_end_scene(width=48)
-            sd = sc.build()
-            cp = sc.scene_cam.params()
-            w, h = 48, sc.scene_cam.image_height
-            pix = jnp.arange(w * h, dtype=jnp.uint32)
-            smp = jnp.zeros((w * h,), jnp.uint32)
-            seed = jnp.uint32(3)
-            for depth in (8, 16):  # unsplit + two-level bucketed
-                # Fused forward value == the record kernel's own radiance.
-                rec, rad_mega = replay_mod.trace_record_mega(
-                    sd, cp, w, h, pix, smp, seed, depth,
-                    interpret=True, radiance=True,
-                )
-                got = replay_mod.render_rays_replay(
-                    sd, cp, w, h, pix, smp, seed, depth, record_mode="mega"
-                )
-                ref = integrator.trace(
-                    sd,
-                    *generate_rays(cp, w, h, pix, smp, seed)[:2],
-                    pix, smp, seed, depth,
-                )
-                got, ref = np.asarray(got), np.asarray(ref)
-                assert np.isfinite(got).all()
-                np.testing.assert_allclose(
-                    got.mean(0), ref.mean(0), rtol=2e-3, atol=2e-3
-                )
-                # Records from the radiance mode are bit-identical to the
-                # plain record mode (the decision math is untouched).
-                rec_plain = replay_mod.trace_record_mega(
-                    sd, cp, w, h, pix, smp, seed, depth, interpret=True
-                )
-                np.testing.assert_array_equal(
-                    np.asarray(rec), np.asarray(rec_plain)
-                )
-
-                # Gradients: fused vs non-fused kernel path agree to the
-                # loss-cotangent tolerance (the primal differs by mega-t vs
-                # replay-t f32 association, ~1e-3 relative).
-                def loss(sd_, fused):
-                    mode = "mega" if fused else "staged"
-                    r = replay_mod.render_rays_replay(
-                        sd_, cp, w, h, pix, smp, seed, depth,
-                        record_mode=mode,
-                    )
-                    return jnp.mean(r ** 2)
-
-                gf = jax.grad(lambda s: loss(s, True), allow_int=True)(sd)
-                gr = jax.grad(lambda s: loss(s, False), allow_int=True)(sd)
-                for name in ("mat_emission",):
-                    a = np.asarray(getattr(gf, name))
-                    b = np.asarray(getattr(gr, name))
-                    scale = max(float(np.abs(b).max()), 1e-6)
-                    assert float(np.abs(a - b).max()) / scale < 0.02, name
-        finally:
-            jax.clear_caches()

@@ -200,11 +200,11 @@ class TestExactMidShutter:
         sc.translate_x(2.0, 0.01, NERP, WORLD, "b")
         sd = sc.build()
         assert sd.motion_exact
-        from crucible_tpu.models import integrator
         from crucible_tpu.models import replay as replay_mod
+        from crucible_tpu.utils import backend
 
-        assert not integrator.fused_supported(sd)
-        assert not integrator.megakernel_supported(sd, sc.scene_cam.params())
+        # Exact mode caps the persistent wavefront's lanes on every route.
+        assert backend.route("gpu", sd).lanes == backend.EXACT_MOTION_MAX_LANES
         # Replay COVERS exact scenes as of r4 (per-winner track evaluation).
         assert replay_mod.replay_supported(sd)
 

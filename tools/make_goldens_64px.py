@@ -1,17 +1,16 @@
-"""Generate the REAL-CHIP golden references (tests/goldens/golden_tpu_v1.npz).
+"""Generate the 64px golden references (tests/goldens/golden_64px_v2.npz).
 
-CPU tiled renders (the semantic reference path) of all six demo worlds at
-64px / 8 spp / depth 8, seed 0 — larger than the CI goldens (32px, 2-8 spp)
-so real-chip drift has more surface to show up in, and covering the two
-worlds CI goldens omit (teapot BVH meshes, garden equirect HDR sky).
-
-`tools/tpu_bench.py golden` renders the same configs on the TPU through
-each world's PRODUCTION schedule and asserts the bounds (VERDICT r3 #3:
-interpret-mode CPU goldens could not catch a Mosaic lowering change that
-alters numerics).
+CPU tiled renders (the semantic reference path) of eight demo worlds at
+64px / 8 spp / depth 8, seed 0 — larger than the 32px CI goldens, and
+covering worlds those omit (teapot BVH mesh, garden equirect HDR sky,
+sphere_stress, nested checkers) — plus one depth-50 image through the deep
+gradient path's forward (``book1_deep50``).
 
 Regenerate ONLY on an intentional semantic change:
-    python tools/make_tpu_goldens.py
+    python tools/make_goldens_64px.py
+Each entry is printed beside its difference from the previous goldens
+(golden_64px_v1.npz): the fraction of values off by more than 1e-3 and the
+mean absolute difference.
 """
 
 from __future__ import annotations
@@ -26,13 +25,13 @@ import numpy as np
 
 SPP = 8
 DEPTH = 8
-OUT = Path(__file__).resolve().parent.parent / "tests" / "goldens" / "golden_tpu_v1.npz"
+GOLDENS = Path(__file__).resolve().parent.parent / "tests" / "goldens"
+OUT = GOLDENS / "golden_64px_v2.npz"
+PREVIOUS = GOLDENS / "golden_64px_v1.npz"
 
 # (builder name, width, spp) — garden's demo defaults to 1920w; pin it
-# small. Teapot runs 32 spp (r5): at 8 spp its flip tail sat at 1.98% of
-# the 2% bound — one Mosaic change from flaky-red; 4x the samples averages
-# the ulp-flipped silhouette samples down and restores margin (VERDICT
-# r4 #6).
+# small. Teapot runs 32 spp: more samples average its ulp-flipped
+# silhouette samples down when another platform is compared to it.
 WORLDS = (
     ("smoke_scene", 64, SPP),
     ("book1_end_scene", 64, SPP),
@@ -40,19 +39,13 @@ WORLDS = (
     ("earth", 64, SPP),
     ("load_teapot", 64, 32),
     ("garden_skybox", 64, SPP),
-    # r4 additions: multi-tile sphere table (cull path) + deep nested
-    # checkers (record-schedule shading).
+    # Large sphere table + deep nested checkers.
     ("sphere_stress", 64, SPP),
     ("nested_checkers", 64, SPP),
 )
 
-# Per-config spp map consumed by tools/tpu_bench.py golden.
-WORLD_SPP = {name: spp for name, _, spp in WORLDS}
-
-# r5 addition: a DEPTH-50 config through the deep-GRADIENT forward path
-# (two-level record + depth-bucketed replay — on the chip the buckets run
-# the in-Pallas replay kernel). The headline deep numbers were never
-# image-checked on the chip before (VERDICT r4 #6).
+# A DEPTH-50 config through the deep-GRADIENT forward path (two-level
+# record + depth-bucketed replay).
 DEEP_WORLD = ("book1_end_scene", 64, SPP, 50)
 DEEP_KEY = "book1_deep50"
 
@@ -85,18 +78,26 @@ def deep_replay_image(width=64, spp=SPP, depth=50, seed=0):
 def main():
     from crucible_tpu.models import demo, render
 
+    previous = np.load(PREVIOUS)
+
+    def report(name, arr):
+        diff = np.abs(arr - previous[name])
+        print(
+            f"{name}: {arr.shape} mean={arr.mean():.4f} max={arr.max():.4f} "
+            f"vs previous: >1e-3 {(diff > 1e-3).mean():.4f} "
+            f"mean abs {diff.mean():.2e}"
+        )
+
     out = {}
     for name, width, spp in WORLDS:
         sc = getattr(demo, name)(width=width)
         img = render.render_image(
             sc, samples=spp, max_depth=DEPTH, seed=0, mode="tiled"
         )
-        arr = np.asarray(img, np.float32)
-        out[name] = arr
-        print(f"{name}: {arr.shape} mean={arr.mean():.4f} max={arr.max():.4f}")
-    arr = deep_replay_image(DEEP_WORLD[1], DEEP_WORLD[2], DEEP_WORLD[3])
-    out[DEEP_KEY] = arr
-    print(f"{DEEP_KEY}: {arr.shape} mean={arr.mean():.4f} max={arr.max():.4f}")
+        out[name] = np.asarray(img, np.float32)
+        report(name, out[name])
+    out[DEEP_KEY] = deep_replay_image(DEEP_WORLD[1], DEEP_WORLD[2], DEEP_WORLD[3])
+    report(DEEP_KEY, out[DEEP_KEY])
     np.savez_compressed(OUT, **out)
     print(f"wrote {OUT}")
 

@@ -1,10 +1,8 @@
 """Scaling-efficiency harness: sharded render throughput vs device count.
 
-North star (BASELINE.md): >85% scaling efficiency from 1 host to N hosts.
-On real pods this runs unchanged after ``initialize_distributed``; in this
-environment it demonstrates the methodology on the virtual CPU mesh
-(set XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS via
-jax.config cpu) or on however many real chips are attached.
+Runs on however many GPUs are attached (one host; several hosts after
+``parallel.mesh.initialize_distributed``), or with ``--cpu`` on 8 virtual
+CPU devices, which checks the mechanics only.
 
 Usage: python tools/scaling_bench.py [--cpu] [--width W] [--spp S]
 """
